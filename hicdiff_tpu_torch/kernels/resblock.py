@@ -1,0 +1,122 @@
+"""Fused hicedrn residual block (port of hicdiff_tpu/kernels/resblock.py).
+
+    y = conv(silu(conv(x) * (scale + 1) + shift)) * 0.1 + x
+
+with ONE shared 3x3 C->C conv (bias, SAME zero padding) applied twice, NHWC.
+Accumulation is fp32; the intermediate is cast back to x's dtype between the
+two convs, as in the Pallas kernel.
+
+`fused_resblock` takes the plain PyTorch version below for a CPU tensor. For
+a CUDA tensor it launches the hand-written kernel of `csrc/resblock.cu` twice
+(conv #1 with the scale-shift-SiLU epilogue, conv #2 with the x0.1 residual
+epilogue) or raises: there is no fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from hicdiff_tpu_torch.kernels import _build
+
+__all__ = ["fused_resblock", "fused_resblock_reference"]
+
+_CONV1, _CONV2 = 1, 2  # the epilogue modes of csrc/resblock.cu
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def fused_resblock_reference(x, kernel, bias, scale, shift):
+    """The plain PyTorch version: fp32 convs on x's dtype, like the kernel.
+
+    x (B,H,W,C); kernel (3,3,C,C) HWIO; bias (C,); scale/shift (B,C)."""
+    dt = x.dtype
+    w = kernel.float().permute(3, 2, 0, 1)  # HWIO -> OIHW
+    b = bias.float()
+
+    def conv(t):
+        return F.conv2d(t.float().permute(0, 3, 1, 2), w, b, padding=1).permute(0, 2, 3, 1)
+
+    h = conv(x) * (scale.float()[:, None, None, :] + 1.0) + shift.float()[:, None, None, :]
+    h = F.silu(h).to(dt)
+    return (conv(h) * 0.1 + x.float()).to(dt)
+
+
+def _check(x, kernel, bias, scale, shift):
+    if x.dim() != 4:
+        raise ValueError(f"x must be (B, H, W, C), got shape {tuple(x.shape)}")
+    b, _, _, c = x.shape
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"x must be float32 or bfloat16, got {x.dtype}")
+    for name, t, shape in (("kernel", kernel, (3, 3, c, c)), ("bias", bias, (c,)),
+                           ("scale", scale, (b, c)), ("shift", shift, (b, c))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+        if t.dtype != x.dtype:
+            raise ValueError(f"{name} must have x's dtype {x.dtype}, got {t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+
+
+@functools.lru_cache(maxsize=None)
+def _conv3x3(dtype):
+    lib = _build.load_library()
+    fn = lib.hicdiff_conv3x3_bf16 if dtype == torch.bfloat16 else lib.hicdiff_conv3x3_f32
+    p = ctypes.c_void_p
+    fn.argtypes = [p, p, p, p, p, ctypes.c_longlong, p, p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def _check_cuda(x, kernel, bias, scale, shift):
+    if not x.is_cuda:
+        raise ValueError(f"fused_resblock runs on CPU or CUDA tensors, got {x.device}")
+    c = x.shape[-1]
+    if c % 128:
+        raise ValueError(f"the CUDA kernel tiles 128 channels at a time, got C={c}")
+    if not (x.is_contiguous() and kernel.is_contiguous() and bias.is_contiguous()):
+        raise ValueError("x, kernel and bias must be contiguous")
+    if scale.stride(1) != 1 or shift.stride(1) != 1 or scale.stride(0) != shift.stride(0):
+        raise ValueError("scale and shift must be row-major with one row stride")
+    vec = 16 // x.element_size()  # elements per 16-byte load
+    if scale.stride(0) % vec:
+        raise ValueError(f"scale/shift row stride must be a multiple of {vec}")
+    for t in (x, kernel, bias, scale, shift):
+        if t.data_ptr() % 16:
+            raise ValueError("the CUDA kernel needs 16-byte aligned tensors")
+
+
+def _launch(fn, lib, src, kernel, bias, scale, shift, res, out, mode):
+    b, h, w, c = src.shape
+    status = fn(
+        src.data_ptr(), kernel.data_ptr(), bias.data_ptr(), scale.data_ptr(),
+        shift.data_ptr(), scale.stride(0), None if res is None else res.data_ptr(),
+        out.data_ptr(), b, h, w, c, mode, torch.cuda.current_stream(src.device).cuda_stream,
+    )
+    _build.check_status(lib, status, "fused_resblock")
+    fused_resblock.launches += 1
+
+
+def fused_resblock(x, kernel, bias, scale, shift):
+    """y = conv(silu(conv(x)*(scale+1)+shift))*0.1 + x with one shared conv.
+
+    x: (B, H, W, C) NHWC, float32 or bfloat16; kernel: (3, 3, C, C) HWIO;
+    bias: (C,); scale/shift: (B, C) (= split(Dense(silu(t_emb)))). All in x's
+    dtype and on x's device. Each call on CUDA is two kernel launches, each
+    counted in `fused_resblock.launches`."""
+    _check(x, kernel, bias, scale, shift)
+    if x.device.type == "cpu":
+        return fused_resblock_reference(x, kernel, bias, scale, shift)
+    lib, fn = _conv3x3(x.dtype)
+    _check_cuda(x, kernel, bias, scale, shift)
+    with torch.cuda.device(x.device):
+        hidden = torch.empty_like(x)
+        out = torch.empty_like(x)
+        _launch(fn, lib, x, kernel, bias, scale, shift, None, hidden, _CONV1)
+        _launch(fn, lib, hidden, kernel, bias, scale, shift, x, out, _CONV2)
+    return out
+
+
+fused_resblock.launches = 0

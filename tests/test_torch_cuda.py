@@ -1,0 +1,93 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked `cuda` and skips without a CUDA device. The file
+imports neither JAX nor the JAX package (the card has neither), so on the
+card it runs without the suite's conftest, from the repo root:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+fp32 comparisons turn TF32 off, or the plain convs would run in TF32.
+"""
+import numpy as np
+import pytest
+import torch
+
+from hicdiff_tpu_torch.kernels.resblock import fused_resblock, fused_resblock_reference
+from hicdiff_tpu_torch.kernels.sample_step import (
+    fused_posterior_step,
+    fused_posterior_step_reference,
+)
+from hicdiff_tpu_torch.models.hicedrn import HicedrnDiff
+
+pytestmark = pytest.mark.cuda
+
+STEP_SCALARS = (1.1, 0.5, 0.7, 0.3, -2.0)  # a, b, c1, c2, logvar
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 0.016)])
+def test_resblock_kernel_matches_plain(cuda_device, dtype, tol):
+    """fp32: sums over K = 9*C terms in another order; bf16: one ulp of |y| < 4.
+    B*H*W = 260 leaves a ragged last tile; W != H checks the row arithmetic."""
+    rng = np.random.default_rng(0)
+    b, h, w, c = 2, 10, 13, 256
+    bound = 1.0 / np.sqrt(9 * c)
+    arrays = (
+        rng.normal(size=(b, h, w, c)) * 0.5,
+        rng.uniform(-bound, bound, size=(3, 3, c, c)),
+        rng.uniform(-bound, bound, size=(c,)),
+        rng.normal(size=(b, c)) * 0.5,
+        rng.normal(size=(b, c)) * 0.5,
+    )
+    args = [torch.tensor(a, dtype=dtype, device=cuda_device) for a in arrays]
+    before = fused_resblock.launches
+    got = fused_resblock(*args)
+    want = fused_resblock_reference(*args)
+    torch.cuda.synchronize()
+    assert fused_resblock.launches == before + 2
+    assert got.dtype == dtype and got.shape == (b, h, w, c)
+    assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+def test_posterior_step_kernel_matches_plain_and_draws_normals(cuda_device):
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(64, 4096, generator=g).to(cuda_device)
+    eps = torch.randn(64, 4096, generator=g).to(cuda_device)
+    before = fused_posterior_step.launches
+    out, x0 = fused_posterior_step(x, eps, *STEP_SCALARS, 0.0, 1)
+    want_out, want_x0 = fused_posterior_step_reference(x, eps, *STEP_SCALARS, 0.0, 1)
+    assert fused_posterior_step.launches == before + 1
+    assert (out - want_out).abs().max().item() <= 1e-6
+    assert (x0 - want_x0).abs().max().item() <= 1e-6
+    zeros = torch.zeros_like(x)
+    logvar = 2 * float(np.log(0.5))
+    noise, _ = fused_posterior_step(x, zeros, 1.0, 0.0, 0.0, 0.0, logvar, 1.0, 7)
+    again, _ = fused_posterior_step(x, zeros, 1.0, 0.0, 0.0, 0.0, logvar, 1.0, 7)
+    other, _ = fused_posterior_step(x, zeros, 1.0, 0.0, 0.0, 0.0, logvar, 1.0, 8)
+    assert abs(noise.mean().item()) < 0.01 and abs(noise.std().item() - 0.5) <= 0.01
+    assert torch.equal(noise, again) and not torch.equal(noise, other)
+
+
+def test_backbone_kernel_path_matches_plain_path(cuda_device):
+    """The same seeded weights on the card (kernels) and the CPU (plain)."""
+    kw = dict(self_condition=True, number_resnet=2, features=128)
+    on_card = HicedrnDiff(device=cuda_device, generator=torch.Generator().manual_seed(0), **kw)
+    on_cpu = HicedrnDiff(device="cpu", generator=torch.Generator().manual_seed(0), **kw)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 16, 16, 1, generator=g) * 0.3
+    cond = torch.randn(2, 16, 16, 1, generator=g) * 0.3
+    t = torch.tensor([3, 700])
+    before = fused_resblock.launches
+    with torch.no_grad():
+        got = on_card(x.to(cuda_device), t.to(cuda_device), cond.to(cuda_device)).cpu()
+        want = on_cpu(x, t, cond)
+    assert fused_resblock.launches == before + 2 * 2
+    assert (got - want).abs().max().item() <= 1e-4
