@@ -10,6 +10,12 @@ two convs, as in the Pallas kernel.
 a CUDA tensor it launches the hand-written kernel of `csrc/resblock.cu` twice
 (conv #1 with the scale-shift-SiLU epilogue, conv #2 with the x0.1 residual
 epilogue) or raises: there is no fallback.
+
+The CUDA kernels read the conv weight in their own layouts (`prepare_weight`):
+bf16 the N x K matrix of `pack_conv_weight`, fp32 the HWIO kernel as a K x N
+matrix. `fused_resblock` prepares it on every call; a module that calls the
+block many times with one weight prepares it once and calls
+`fused_resblock_prepared`.
 """
 from __future__ import annotations
 
@@ -21,7 +27,10 @@ import torch.nn.functional as F
 
 from hicdiff_tpu_torch.kernels import _build
 
-__all__ = ["fused_resblock", "fused_resblock_reference"]
+__all__ = [
+    "fused_resblock", "fused_resblock_prepared", "fused_resblock_reference",
+    "pack_conv_weight", "prepare_weight",
+]
 
 _CONV1, _CONV2 = 1, 2  # the epilogue modes of csrc/resblock.cu
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -41,6 +50,28 @@ def fused_resblock_reference(x, kernel, bias, scale, shift):
     h = conv(x) * (scale.float()[:, None, None, :] + 1.0) + shift.float()[:, None, None, :]
     h = F.silu(h).to(dt)
     return (conv(h) * 0.1 + x.float()).to(dt)
+
+
+def pack_conv_weight(kernel):
+    """(3, 3, C, C) HWIO -> (C, 9C): row co holds kernel[ky, kx, ci, co] at
+    column (3 ky + kx) C + ci. This N x K, K-major matrix is what the bf16
+    kernel loads by TMA, one (64 k, BN n) box per tap and 64 input channels."""
+    c = kernel.shape[-1]
+    return kernel.permute(3, 0, 1, 2).reshape(c, 9 * c).contiguous()
+
+
+def prepare_weight(kernel):
+    """The conv weight as the CUDA kernel of its dtype reads it: bf16 takes
+    `pack_conv_weight(kernel)`, fp32 the HWIO kernel itself as a K x N matrix."""
+    return pack_conv_weight(kernel) if kernel.dtype == torch.bfloat16 else kernel.contiguous()
+
+
+def _hwio(weight):
+    """The (3, 3, C, C) HWIO view of a `prepare_weight` result."""
+    if weight.dtype != torch.bfloat16:
+        return weight
+    c = weight.shape[0]
+    return weight.view(c, 3, 3, c).permute(1, 2, 3, 0)
 
 
 def _check(x, kernel, bias, scale, shift):
@@ -70,33 +101,46 @@ def _conv3x3(dtype):
     return lib, fn
 
 
-def _check_cuda(x, kernel, bias, scale, shift):
+def _check_cuda(x, weight, bias, scale, shift):
     if not x.is_cuda:
         raise ValueError(f"fused_resblock runs on CPU or CUDA tensors, got {x.device}")
     c = x.shape[-1]
     if c % 128:
-        raise ValueError(f"the CUDA kernel tiles 128 channels at a time, got C={c}")
-    if not (x.is_contiguous() and kernel.is_contiguous() and bias.is_contiguous()):
-        raise ValueError("x, kernel and bias must be contiguous")
+        raise ValueError(f"the CUDA kernels need C a multiple of 128, got C={c}")
+    if x.numel() == 0:
+        raise ValueError(f"x must have B, H, W >= 1, got shape {tuple(x.shape)}")
+    if not (x.is_contiguous() and weight.is_contiguous() and bias.is_contiguous()):
+        raise ValueError("x, the conv weight and bias must be contiguous")
     if scale.stride(1) != 1 or shift.stride(1) != 1 or scale.stride(0) != shift.stride(0):
         raise ValueError("scale and shift must be row-major with one row stride")
     vec = 16 // x.element_size()  # elements per 16-byte load
     if scale.stride(0) % vec:
         raise ValueError(f"scale/shift row stride must be a multiple of {vec}")
-    for t in (x, kernel, bias, scale, shift):
+    for t in (x, weight, bias, scale, shift):
         if t.data_ptr() % 16:
             raise ValueError("the CUDA kernel needs 16-byte aligned tensors")
 
 
-def _launch(fn, lib, src, kernel, bias, scale, shift, res, out, mode):
+def _launch(fn, lib, src, weight, bias, scale, shift, res, out, mode):
     b, h, w, c = src.shape
     status = fn(
-        src.data_ptr(), kernel.data_ptr(), bias.data_ptr(), scale.data_ptr(),
+        src.data_ptr(), weight.data_ptr(), bias.data_ptr(), scale.data_ptr(),
         shift.data_ptr(), scale.stride(0), None if res is None else res.data_ptr(),
         out.data_ptr(), b, h, w, c, mode, torch.cuda.current_stream(src.device).cuda_stream,
     )
     _build.check_status(lib, status, "fused_resblock")
     fused_resblock.launches += 1
+
+
+def _fused_resblock_cuda(x, weight, bias, scale, shift):
+    lib, fn = _conv3x3(x.dtype)
+    _check_cuda(x, weight, bias, scale, shift)
+    with torch.cuda.device(x.device):
+        hidden = torch.empty_like(x)
+        out = torch.empty_like(x)
+        _launch(fn, lib, x, weight, bias, scale, shift, None, hidden, _CONV1)
+        _launch(fn, lib, hidden, weight, bias, scale, shift, x, out, _CONV2)
+    return out
 
 
 def fused_resblock(x, kernel, bias, scale, shift):
@@ -109,14 +153,23 @@ def fused_resblock(x, kernel, bias, scale, shift):
     _check(x, kernel, bias, scale, shift)
     if x.device.type == "cpu":
         return fused_resblock_reference(x, kernel, bias, scale, shift)
-    lib, fn = _conv3x3(x.dtype)
-    _check_cuda(x, kernel, bias, scale, shift)
-    with torch.cuda.device(x.device):
-        hidden = torch.empty_like(x)
-        out = torch.empty_like(x)
-        _launch(fn, lib, x, kernel, bias, scale, shift, None, hidden, _CONV1)
-        _launch(fn, lib, hidden, kernel, bias, scale, shift, x, out, _CONV2)
-    return out
+    return _fused_resblock_cuda(x, prepare_weight(kernel), bias, scale, shift)
+
+
+def fused_resblock_prepared(x, weight, bias, scale, shift):
+    """`fused_resblock` with the conv weight given as `prepare_weight(kernel)`.
+    A CPU tensor takes the plain version on the HWIO view of `weight`; CUDA
+    launches count in `fused_resblock.launches`."""
+    c = x.shape[-1]
+    want = (c, 9 * c) if weight.dtype == torch.bfloat16 else (3, 3, c, c)
+    if tuple(weight.shape) != want:
+        raise ValueError(f"a {weight.dtype} prepared weight has shape {want}, "
+                         f"got {tuple(weight.shape)}")
+    kernel = _hwio(weight)
+    _check(x, kernel, bias, scale, shift)
+    if x.device.type == "cpu":
+        return fused_resblock_reference(x, kernel, bias, scale, shift)
+    return _fused_resblock_cuda(x, weight, bias, scale, shift)
 
 
 fused_resblock.launches = 0

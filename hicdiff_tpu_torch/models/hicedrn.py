@@ -14,8 +14,8 @@ and named in the reference's state-dict layout (`head.weight`,
 dtype (None: the input's); the time MLP runs in fp32 and the output is fp32,
 as in `HicedrnDiff(dtype=...)`.
 
-Every residual block goes through `kernels.resblock.fused_resblock`: the
-hand-written CUDA kernel for CUDA tensors, its plain version for CPU ones.
+Every residual block goes through `kernels.resblock.fused_resblock_prepared`:
+the hand-written CUDA kernel for CUDA tensors, its plain version for CPU ones.
 The head, body_tail and tail convs and the small GEMMs are `F.conv2d` /
 `F.linear`, as the JAX package leaves them to XLA.
 """
@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from hicdiff_tpu_torch.kernels.resblock import fused_resblock
+from hicdiff_tpu_torch.kernels.resblock import fused_resblock_prepared, prepare_weight
 from hicdiff_tpu_torch.models.common import TimeMLP, init_torch_default
 
 __all__ = ["HicedrnDiff", "HicedrnResBlock"]
@@ -56,9 +56,10 @@ class HicedrnResBlock(nn.Module):
         self._packed = None
 
     def _compute_weights(self, dtype):
-        """(Dense weight, Dense bias, conv kernel, conv bias) in `dtype`, the
-        conv as the kernel takes it, (3,3,C,C) HWIO. Made once per weight
-        update and dtype rather than on every call."""
+        """(Dense weight, Dense bias, conv weight, conv bias) in `dtype`, the
+        conv weight as the CUDA kernel of that dtype reads it (`prepare_weight`
+        of the HWIO kernel). Made once per weight update and dtype rather than
+        on every call."""
         params = (self.mlp[1].weight, self.mlp[1].bias, self.conv["proj"].weight,
                   self.conv["proj"].bias)
         key = (dtype, *((p.device, p.data_ptr(), p._version) for p in params))
@@ -66,7 +67,7 @@ class HicedrnResBlock(nn.Module):
             lin_w, lin_b, conv_w, conv_b = (p.detach() for p in params)
             self._packed = (
                 lin_w.to(dtype), lin_b.to(dtype),
-                conv_w.permute(2, 3, 1, 0).to(dtype).contiguous(),
+                prepare_weight(conv_w.permute(2, 3, 1, 0).to(dtype)),
                 conv_b.to(dtype).contiguous(),
             )
             self._packed_key = key
@@ -74,9 +75,9 @@ class HicedrnResBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, t_act: torch.Tensor) -> torch.Tensor:
         """x (B,H,W,C) in the compute dtype; t_act = silu(t_emb) (B, 4C), same dtype."""
-        lin_w, lin_b, kernel, bias = self._compute_weights(x.dtype)
+        lin_w, lin_b, weight, bias = self._compute_weights(x.dtype)
         scale, shift = F.linear(t_act, lin_w, lin_b).chunk(2, dim=-1)
-        return fused_resblock(x, kernel, bias, scale, shift)
+        return fused_resblock_prepared(x, weight, bias, scale, shift)
 
 
 class HicedrnDiff(nn.Module):
@@ -85,7 +86,7 @@ class HicedrnDiff(nn.Module):
     Call: model(x, time, x_self_cond) with x (B, H, W, channels) NHWC and
     integer timesteps `time` (B,). Parameters are drawn on the CPU from
     `generator` (default: a fresh `torch.Generator()`) with PyTorch's default
-    init, then moved to `device`."""
+    init, then moved to `device`, which the caller must name."""
 
     def __init__(
         self,
@@ -96,7 +97,7 @@ class HicedrnDiff(nn.Module):
         variant: str = "base",
         features: int = N_FEAT,
         dtype: Optional[torch.dtype] = None,
-        device: torch.device | str = "cpu",
+        device: torch.device | str,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()

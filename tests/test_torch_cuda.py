@@ -12,12 +12,14 @@ import numpy as np
 import pytest
 import torch
 
+import torch.nn.functional as F
+
 from hicdiff_tpu_torch.kernels.resblock import fused_resblock, fused_resblock_reference
 from hicdiff_tpu_torch.kernels.sample_step import (
     fused_posterior_step,
     fused_posterior_step_reference,
 )
-from hicdiff_tpu_torch.models.hicedrn import HicedrnDiff
+from hicdiff_tpu_torch.models.hicedrn import HicedrnDiff, HicedrnResBlock
 
 pytestmark = pytest.mark.cuda
 
@@ -33,12 +35,24 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 0.016)])
-def test_resblock_kernel_matches_plain(cuda_device, dtype, tol):
+@pytest.mark.parametrize("dtype,tol,shape", [
+    (torch.float32, 1e-4, (2, 10, 13, 256)),
+    (torch.bfloat16, 0.016, (8, 64, 64, 256)),
+    (torch.bfloat16, 0.016, (2, 10, 13, 256)),
+    (torch.bfloat16, 0.016, (1, 6, 80, 256)),
+    (torch.bfloat16, 0.016, (2, 10, 13, 128)),
+    (torch.bfloat16, 0.016, (1, 5, 70, 384)),
+    (torch.bfloat16, 0.016, (1, 3, 9, 512)),
+], ids=["fp32", "bf16_main", "bf16_ragged", "bf16_two_column_tiles", "bf16_c128",
+        "bf16_c384", "bf16_c512"])
+def test_resblock_kernel_matches_plain(cuda_device, dtype, tol, shape):
     """fp32: sums over K = 9*C terms in another order; bf16: one ulp of |y| < 4.
-    B*H*W = 260 leaves a ragged last tile; W != H checks the row arithmetic."""
+    (8,64,64,256) is the main path's shape; W = 13, 70 and 80 leave ragged
+    column tiles, odd H a ragged row tile, W != H checks the row arithmetic;
+    C = 128 and 384 leave the last 256-channel tile half empty (zero-filled
+    weight rows, no stores past C), C = 512 takes two full tiles."""
     rng = np.random.default_rng(0)
-    b, h, w, c = 2, 10, 13, 256
+    b, h, w, c = shape
     bound = 1.0 / np.sqrt(9 * c)
     arrays = (
         rng.normal(size=(b, h, w, c)) * 0.5,
@@ -91,3 +105,23 @@ def test_backbone_kernel_path_matches_plain_path(cuda_device):
         want = on_cpu(x, t, cond)
     assert fused_resblock.launches == before + 2 * 2
     assert (got - want).abs().max().item() <= 1e-4
+
+
+def test_block_cached_pack_matches_public_call(cuda_device):
+    """A residual block on the card runs on the weight it packed once; the
+    public HWIO call packs on the fly. Same bytes in, so the same bits out."""
+    torch.manual_seed(0)
+    block = HicedrnResBlock(256, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    x = (torch.randn(2, 16, 16, 256, generator=g, device=cuda_device) * 0.5).bfloat16()
+    t_act = F.silu(torch.randn(2, 1024, generator=g, device=cuda_device)).bfloat16()
+    before = fused_resblock.launches
+    with torch.no_grad():
+        got = block(x, t_act)
+        lin, conv = block.mlp[1], block.conv["proj"]
+        scale, shift = F.linear(t_act, lin.weight.bfloat16(), lin.bias.bfloat16()).chunk(2, -1)
+        kernel = conv.weight.permute(2, 3, 1, 0).bfloat16()
+        want = fused_resblock(x, kernel, conv.bias.bfloat16(), scale, shift)
+    torch.cuda.synchronize()
+    assert fused_resblock.launches == before + 4
+    assert torch.equal(got, want)

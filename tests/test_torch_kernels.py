@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from hicdiff_tpu.kernels.resblock import fused_resblock as jax_fused_resblock
 from hicdiff_tpu.kernels.sample_step import fused_posterior_step as jax_fused_posterior_step
@@ -17,10 +18,17 @@ from hicdiff_tpu.models.hicedrn import HicedrnResBlock
 from hicdiff_tpu_torch.kernels import _build
 from hicdiff_tpu_torch.kernels import resblock as resblock_mod
 from hicdiff_tpu_torch.kernels import sample_step as sample_step_mod
-from hicdiff_tpu_torch.kernels.resblock import fused_resblock
+from hicdiff_tpu_torch.kernels.resblock import (
+    fused_resblock,
+    fused_resblock_prepared,
+    fused_resblock_reference,
+    pack_conv_weight,
+    prepare_weight,
+)
 from hicdiff_tpu_torch.kernels.sample_step import fused_posterior_step
 
 STEP_SCALARS = (1.1, 0.5, 0.7, 0.3, -2.0)  # a, b, c1, c2, logvar
+TILE_H, TILE_W, BK = 2, 64, 64  # the bf16 kernel's output tile and k-block (csrc/resblock.cu)
 
 
 def _block_inputs(shape, seed=0):
@@ -61,6 +69,60 @@ def test_resblock_plain_bf16_matches_pallas_kernel():
     )
     assert got.dtype == torch.bfloat16
     assert np.abs(got.float().numpy() - pallas).max() <= 0.016
+
+
+def _tiled_conv(x, packed, bias):
+    """conv(x) + bias as the bf16 CUDA kernel decomposes it, in fp32. Each
+    2-row x 64-column output tile (M = 128 pixels in [h][w] order) sums, over
+    the 9 taps and the C/64 input-channel slices, the shifted (2, 64, 64)
+    window of x, zero-filled outside x as TMA fills it, times the packed
+    weight's (C, 64) slice of that k-block."""
+    b, h, w, c = x.shape
+    th, tw = -(-h // TILE_H), -(-w // TILE_W)
+    xpad = torch.zeros(b, th * TILE_H + 2, tw * TILE_W + 2, c)
+    xpad[:, 1:h + 1, 1:w + 1] = x
+    acc = torch.zeros(b, th, tw, TILE_H * TILE_W, c)
+    for kb in range(9 * c // BK):
+        tap, c0 = divmod(kb * BK, c)
+        dy, dx = divmod(tap, 3)
+        window = xpad[:, dy:dy + th * TILE_H, dx:dx + tw * TILE_W, c0:c0 + BK]
+        a = (window.reshape(b, th, TILE_H, tw, TILE_W, BK).permute(0, 1, 3, 2, 4, 5)
+             .reshape(b, th, tw, TILE_H * TILE_W, BK))
+        acc += a @ packed[:, kb * BK:(kb + 1) * BK].T
+    y = (acc.reshape(b, th, tw, TILE_H, TILE_W, c).permute(0, 1, 3, 2, 4, 5)
+         .reshape(b, th * TILE_H, tw * TILE_W, c))
+    return y[:, :h, :w] + bias
+
+
+@pytest.mark.parametrize("shape", [(1, 10, 13, 128), (1, 6, 80, 128), (1, 16, 16, 256)],
+                         ids=["ragged_w13", "two_column_tiles", "c256"])
+def test_packed_weight_in_tiled_decomposition_matches_reference_and_pallas(shape):
+    """pack_conv_weight's layout, read the way the bf16 kernel reads it, gives
+    the block: fp32, at the bar tests/test_fastpath.py holds the Pallas kernel
+    to against flax. W = 13 and 80 leave a ragged last column tile."""
+    _, _, _, *args = _block_inputs(shape)
+    x, kernel, bias, scale, shift = (torch.tensor(a) for a in args)
+    packed = pack_conv_weight(kernel)
+    assert packed.shape == (shape[-1], 9 * shape[-1]) and packed.is_contiguous()
+    hidden = F.silu(_tiled_conv(x, packed, bias) * (scale[:, None, None] + 1.0)
+                    + shift[:, None, None])
+    got = (_tiled_conv(hidden, packed, bias) * 0.1 + x).numpy()
+    want = fused_resblock_reference(x, kernel, bias, scale, shift).numpy()
+    pallas = np.asarray(jax_fused_resblock(*map(jnp.asarray, args), interpret=True))
+    assert np.abs(got - want).max() <= 2e-5
+    assert np.abs(got - pallas).max() <= 2e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_prepared_weight_gives_the_hwio_call(dtype):
+    """On the CPU the prepared path runs the plain version on the HWIO view of
+    the prepared weight: bit for bit the public call."""
+    _, _, _, *args = _block_inputs((2, 6, 5, 128), seed=3)
+    x, kernel, bias, scale, shift = (torch.tensor(a).to(dtype) for a in args)
+    got = fused_resblock_prepared(x, prepare_weight(kernel), bias, scale, shift)
+    assert torch.equal(got, fused_resblock(x, kernel, bias, scale, shift))
+    with pytest.raises(ValueError, match="prepared weight"):
+        fused_resblock_prepared(x, kernel.reshape(9 * 128, 128), bias, scale, shift)
 
 
 def test_resblock_rejects_mismatched_inputs():

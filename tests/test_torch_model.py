@@ -35,7 +35,7 @@ def _pair(features, seed=0):
 
 def _port(params, features, dtype=None):
     model = HicedrnDiff(
-        self_condition=True, number_resnet=BLOCKS, features=features, dtype=dtype
+        self_condition=True, number_resnet=BLOCKS, features=features, dtype=dtype, device="cpu"
     )
     model.load_state_dict(params_from_jax(params))
     return model
@@ -103,7 +103,7 @@ def test_params_from_jax_rejects_non_hicedrn():
 
 def test_seeded_init_is_torch_default_and_reproducible():
     def build(seed):
-        return HicedrnDiff(self_condition=True, number_resnet=2, features=16,
+        return HicedrnDiff(self_condition=True, number_resnet=2, features=16, device="cpu",
                            generator=torch.Generator().manual_seed(seed))
 
     a, b, c = build(0).state_dict(), build(0).state_dict(), build(1).state_dict()
@@ -119,7 +119,7 @@ def test_block_weight_cache_follows_new_weights():
     """The blocks keep their weights in the kernel's layout; loading new
     weights must not leave a forward on the old ones."""
     _, params, x, cond, t = _pair(features=16, seed=2)
-    port = HicedrnDiff(self_condition=True, number_resnet=BLOCKS, features=16)
+    port = HicedrnDiff(self_condition=True, number_resnet=BLOCKS, features=16, device="cpu")
     inputs = (torch.from_numpy(x), torch.from_numpy(t), torch.from_numpy(cond))
     with torch.no_grad():
         before = port(*inputs)
@@ -132,4 +132,10 @@ def test_block_weight_cache_follows_new_weights():
 
 def test_only_base_variant_is_ported():
     with pytest.raises(NotImplementedError):
-        HicedrnDiff(variant="att")
+        HicedrnDiff(variant="att", device="cpu")
+
+
+def test_device_is_required():
+    """The model is built where the caller says; it never defaults to the CPU."""
+    with pytest.raises(TypeError, match="device"):
+        HicedrnDiff(self_condition=True, number_resnet=1, features=8)

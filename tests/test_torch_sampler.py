@@ -31,7 +31,7 @@ def engines():
         jmodel, image_size=16, timesteps=1000, beta_schedule="sigmoid", mode="cond"
     )
     params = jax.tree.map(np.asarray, jeng.init_params(jax.random.PRNGKey(0)))
-    model = HicedrnDiff(self_condition=True, number_resnet=2, features=16)
+    model = HicedrnDiff(self_condition=True, number_resnet=2, features=16, device="cpu")
     model.load_state_dict(params_from_jax(params))
     eng = GaussianDiffusion.create(
         model, device="cpu", timesteps=1000, beta_schedule="sigmoid"
@@ -158,5 +158,6 @@ def test_t_start_out_of_range_raises(engines):
 def test_engine_needs_self_conditioned_model():
     with pytest.raises(NotImplementedError, match="self_condition"):
         GaussianDiffusion.create(
-            HicedrnDiff(self_condition=False, number_resnet=1, features=8), device="cpu",
+            HicedrnDiff(self_condition=False, number_resnet=1, features=8, device="cpu"),
+            device="cpu",
         )
