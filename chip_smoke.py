@@ -5,20 +5,30 @@ root of a checkout on a machine with an NVIDIA H100,
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from hicdiff_tpu_torch/csrc/, holds each
-against its plain PyTorch version at the main path's shapes (the bf16 conv
-also at two ragged shapes), times each beside its bound and, where one
-exists, the PyTorch library calls that compute the same function, runs the
-full 32-block backbone through the kernels against the plain path, then
-serves three `denoise` requests of 8 full-width patches through the port's
-DenoiseService on a Unix socket and checks, by the kernels' launch counters,
-that every residual block and every sampling step went through the kernels.
-A fourth request runs under torch.profiler for the device-time breakdown,
-and the host's enqueue time of one sampling step is split into the conv
-wrapper's share and the rest.
+against its plain PyTorch version at the main path's shapes (the conv in
+bf16 and fp32, each also at two ragged shapes), times each beside its bound
+and, where one exists, the PyTorch library calls that compute the same
+function, runs the full 32-block backbone through the kernels against the
+plain path, then serves `denoise` requests of 8 full-width patches through
+the port's DenoiseService on a Unix socket, twice: three requests of a bf16
+service (`bf16=True`), then two of an fp32 service (`bf16=False`, the
+default of `serve_torch.py` and of the `-u 0` CLI). For each service it
+checks, by the kernels' launch counters, that every residual block and every
+sampling step went through the kernels, and runs one more request under
+torch.profiler for the device-time breakdown. The host's enqueue time of one
+bf16 sampling step is split into the conv wrapper's share and the rest.
 
 Times: `ms`, `plain_ms` and `library_ms` are CUDA-event times of back-to-back
 calls (device time plus any gaps where the device waits for the host);
 `device_ms` and its kin are the summed device durations from torch.profiler.
+Bounds: the fp32 conv keeps `bound_ms` (as `bound_ms_fp32` in the kernels
+line), its FLOPs at the 67 TFLOP/s of CUDA-core FMAs, and adds
+`bound_ms_3xtf32`, three times its FLOPs at the 495 TFLOP/s of TF32 on the
+tensor cores: the kernel runs each product as three TF32 products there, so
+that is the least time its design could take, and its share of bound is read
+against it. The posterior step moves less than a launch takes, so its phase
+prints `floor_device_ms`, the device time of a launch that does almost
+nothing (a 1-element fill), beside its own device time.
 Each phase prints one line with its wall time; the first failure ends the run
 with a non-zero exit. Without CUDA it fails before printing any result.
 The last line is {"ok": true, "device": {...}}.
@@ -44,10 +54,12 @@ STEP_SHAPE = (8, 64, 64, 1)        # the chain state of one service batch
 NOISE_SHAPE = (64, 4096)           # 262,144 draws for the noise statistics
 RAGGED_SHAPES = ((2, 10, 13, 256), (1, 6, 80, 256))  # ragged H/W tiles, two column tiles
 BLOCKS, FEATURES, SIGMA, BATCH, REQUESTS = 32, 256, 0.1, 8, 3
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 on the tensor cores, fp32
-# outside them (the fp32 kernel uses FMAs), and the HBM3 rate
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+FP32_REQUESTS = 2
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 and TF32 on the tensor
+# cores, fp32 outside them, and the HBM3 rate
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, "tf32": 495e12}
 HBM_BYTES_PER_S = 3.35e12
+CONV_KERNELS = ("conv3x3_bf16_kernel", "conv3x3_3xtf32_kernel")
 
 
 def phase(name, t0, **fields):
@@ -125,17 +137,119 @@ def profiled_ms(fn, iters=20):
     return sum(d for _, _, d in ops) / 1e3 / iters
 
 
-def host_us(fn, iters=50):
-    """Mean host time of fn() in microseconds: the calls only enqueue work, and
-    the device, slower than the host here, never makes the host wait."""
-    fn()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(iters):
+def host_us(fn, iters=50, reps=5):
+    """Mean host time of fn() in microseconds over `iters` calls, the median
+    of `reps` such runs (the host is shared and spreads): the calls only
+    enqueue work, and the device never makes the host wait."""
+    runs = []
+    for _ in range(reps):
         fn()
-    us = (time.perf_counter() - t) / iters * 1e6
-    torch.cuda.synchronize()
-    return us
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        runs.append((time.perf_counter() - t) / iters * 1e6)
+        torch.cuda.synchronize()
+    return sorted(runs)[reps // 2]
+
+
+def serve_and_profile(service, requests, dtype, card):
+    """Serve `requests` denoise requests of BATCH patches through `service` on
+    a Unix socket, check every output and, by the launch counters (set to 0
+    just before the requests and read just after), that each block and step
+    went through the kernels; then one more request under the profiler, and
+    shut the server down. Returns what was measured."""
+    from hicdiff_tpu_torch.kernels.resblock import fused_resblock
+    from hicdiff_tpu_torch.kernels.sample_step import fused_posterior_step
+    from hicdiff_tpu_torch.serve import request, serve_forever
+
+    steps = service.t_start + 1
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="smoke_", dir=os.path.join(ROOT, "build"))
+    sock = min(os.path.join(work, "s.sock"), os.path.relpath(os.path.join(work, "s.sock")),
+               key=len)
+    server = threading.Thread(target=serve_forever, args=(service, sock), daemon=True)
+    server.start()
+    try:
+        for _ in range(200):
+            if os.path.exists(sock):
+                break
+            time.sleep(0.05)
+        ping = request(sock, {"id": 0, "op": "ping"})
+        check(ping.get("ok") and ping["t_start"] == service.t_start, f"ping: {ping}")
+        fused_resblock.launches = 0
+        fused_posterior_step.launches = 0
+        rng = np.random.default_rng(0)
+        latencies = []
+        for i in range(1, requests + 1):
+            noisy = np.clip(rng.normal(0, 0.3, (BATCH, 1, 64, 64)), -1, 1).astype(np.float32)
+            src = os.path.join(work, f"noisy_{i}.npy")
+            np.save(src, noisy)
+            tr = time.time()
+            resp = request(sock, {"id": i, "op": "denoise", "npy": src})
+            latency = time.time() - tr
+            check(resp.get("ok"), f"{dtype} denoise request {i}: {resp}")
+            out = np.load(resp["out"])
+            check(out.shape == noisy.shape, f"{dtype} request {i}: shape {out.shape}")
+            check(np.isfinite(out).all(), f"{dtype} request {i}: non-finite output")
+            # the last step (t = 0) returns the clipped x0 prediction
+            check(np.abs(out).max() <= 1.0, f"{dtype} request {i}: output outside [-1, 1]")
+            latencies.append(latency)
+            phase("denoise_request", tr, request=i, dtype=dtype, patches=BATCH, steps=steps,
+                  latency_s=latency, patches_per_s=BATCH / latency, card=card)
+        resblock_launches = fused_resblock.launches
+        step_launches = fused_posterior_step.launches
+        want_resblock = requests * steps * BLOCKS * 2  # two launches per block
+        want_step = requests * steps
+        check(resblock_launches == want_resblock,
+              f"{dtype} resblock launches {resblock_launches} != {want_resblock}")
+        check(step_launches == want_step,
+              f"{dtype} posterior-step launches {step_launches} != {want_step}")
+        # one more request under the profiler: where the device time goes. It
+        # traces device activity only, since tracing every host op would slow
+        # the host, which may bound the request
+        src = os.path.join(work, "noisy_profile.npy")
+        np.save(src, np.clip(rng.normal(0, 0.3, (BATCH, 1, 64, 64)), -1, 1).astype(np.float32))
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            # let the tracer settle before the request and drain after it: a
+            # device-bound request once lost a step's records without this
+            time.sleep(0.2)
+            tr = time.time()
+            resp = request(sock, {"id": requests + 1, "op": "denoise", "npy": src})
+            profiled_s = time.time() - tr
+            torch.cuda.synchronize()
+            time.sleep(0.2)
+        check(resp.get("ok"), f"{dtype} profiled request: {resp}")
+        ops = device_ops(prof)
+        check(ops, "the profiler saw no device activity")
+        busy_us = sum(d for _, _, d in ops)
+        span_us = max(s + d for _, s, d in ops) - min(s for _, s, d in ops)
+        by_name = defaultdict(lambda: [0, 0.0])
+        for name, _, d in ops:
+            by_name[name][0] += 1
+            by_name[name][1] += d
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+        ours = {}  # the port's kernels, device time only
+        for key in (*CONV_KERNELS, "posterior_step_kernel"):
+            hits = [(k, t) for n, (k, t) in by_name.items() if key in n]
+            ours[key] = {"launches": sum(k for k, _ in hits),
+                         "ms": sum(t for _, t in hits) / 1e3}
+        idle_wall = 1 - busy_us / 1e3 / (profiled_s * 1e3)
+        phase("profile", tr, request=requests + 1, dtype=dtype, latency_s=profiled_s,
+              device_busy_ms=busy_us / 1e3, device_span_ms=span_us / 1e3,
+              idle_share_of_wall=idle_wall, idle_share_of_span=1 - busy_us / span_us,
+              kernels=ours,
+              top=[{"name": n[:90], "launches": k, "ms": t / 1e3, "share": t / busy_us}
+                   for n, (k, t) in top], card=card)
+        bye = request(sock, {"id": requests + 2, "op": "shutdown"})
+        check(bye.get("ok"), f"shutdown: {bye}")
+        server.join(timeout=30)
+        check(not server.is_alive(), "server thread did not stop")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return dict(latencies=latencies, resblock_launches=resblock_launches,
+                step_launches=step_launches, profiled_s=profiled_s, busy_ms=busy_us / 1e3,
+                idle_share_of_wall=idle_wall, kernels=ours)
 
 
 def main():
@@ -155,7 +269,7 @@ def main():
         fused_posterior_step_reference,
     )
     from hicdiff_tpu_torch.models.hicedrn import HicedrnDiff
-    from hicdiff_tpu_torch.serve import DenoiseService, request, serve_forever
+    from hicdiff_tpu_torch.serve import DenoiseService
 
     dev = torch.device("cuda")
     # the plain fp32 versions must not quietly run in TF32
@@ -231,26 +345,34 @@ def main():
         resblock[dt] = dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                             bound_ms=bound, bound_by=bound_by, device_ms=dev_ms,
                             host_us=call_host_us)
+        extra = {}
+        if dt == torch.float32:  # three TF32 products per product, on the tensor cores
+            bound3, bound3_by = bound_ms(3 * flops, nbytes, "tf32")
+            resblock[dt].update(bound_ms_3xtf32=bound3, share_of_bound_3xtf32=bound3 / ms)
+            extra = dict(bound_ms_3xtf32=bound3, bound_by_3xtf32=bound3_by,
+                         share_of_bound_3xtf32=bound3 / ms,
+                         share_of_bound_3xtf32_device=bound3 / dev_ms)
         phase("fused_resblock", t0, dtype=str(dt), shape=RESBLOCK_SHAPE, max_abs_err=err,
               tol=tol, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
               device_ms=dev_ms, plain_device_ms=plain_dev_ms,
               library_device_ms=library_dev_ms, library_max_abs_err=lib_err,
               bound_ms=bound, bound_by=bound_by, share_of_bound=bound / ms,
               share_of_bound_device=bound / dev_ms, tflops=flops / ms / 1e9,
-              host_us=call_host_us, launch_host_us=launch_host_us, card=card)
-    ragged_errs = []
-    for shape in RAGGED_SHAPES:
-        xr, kr, br, ter = (t.to(dev, torch.bfloat16) for t in resblock_inputs(shape, g))
-        sr, hr = ter.chunk(2, dim=-1)
-        got = fused_resblock(xr, kr, br, sr, hr)
-        want = fused_resblock_reference(xr, kr, br, sr, hr)
-        torch.cuda.synchronize()
-        check(got.shape == shape, f"fused_resblock bf16 {shape}: shape {tuple(got.shape)}")
-        err = (got.float() - want.float()).abs().max().item()
-        check(err <= 0.016, f"fused_resblock bf16 {shape}: max-abs {err} > 0.016")
-        ragged_errs.append(err)
-    phase("fused_resblock_ragged", t0, dtype="torch.bfloat16", shapes=RAGGED_SHAPES,
-          max_abs_err=ragged_errs, tol=0.016, card=card)
+              host_us=call_host_us, launch_host_us=launch_host_us, **extra, card=card)
+    for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 0.016)):
+        ragged_errs = []
+        for shape in RAGGED_SHAPES:
+            xr, kr, br, ter = (t.to(dev, dt) for t in resblock_inputs(shape, g))
+            sr, hr = ter.chunk(2, dim=-1)
+            got = fused_resblock(xr, kr, br, sr, hr)
+            want = fused_resblock_reference(xr, kr, br, sr, hr)
+            torch.cuda.synchronize()
+            check(got.shape == shape, f"fused_resblock {dt} {shape}: shape {tuple(got.shape)}")
+            err = (got.float() - want.float()).abs().max().item()
+            check(err <= tol, f"fused_resblock {dt} {shape}: max-abs {err} > {tol}")
+            ragged_errs.append(err)
+        phase("fused_resblock_ragged", t0, dtype=str(dt), shapes=RAGGED_SHAPES,
+              max_abs_err=ragged_errs, tol=tol, card=card)
 
     # ---- 3. fused_posterior_step kernel vs plain
     t0 = time.time()
@@ -280,6 +402,9 @@ def main():
 
     step_ms, step_plain_ms = cuda_ms(step_call), cuda_ms(step_plain_call)
     step_dev_ms, step_plain_dev_ms = profiled_ms(step_call), profiled_ms(step_plain_call)
+    post_host_us = host_us(step_call)
+    one = torch.zeros(1, device=dev)
+    floor_dev_ms = profiled_ms(lambda: one.fill_(1.0))  # the device time of a bare launch
     # x and eps read, x_next and x0 written, fp32; a handful of FLOPs a byte
     step_bound, step_bound_by = bound_ms(0, 4 * xs.numel() * xs.element_size(), torch.float32)
     phase("fused_posterior_step", t0, shape=STEP_SHAPE, max_abs_err_gate0=step_err,
@@ -287,7 +412,7 @@ def main():
           ms=step_ms, plain_ms=step_plain_ms, device_ms=step_dev_ms,
           plain_device_ms=step_plain_dev_ms, bound_ms=step_bound, bound_by=step_bound_by,
           share_of_bound=step_bound / step_ms, share_of_bound_device=step_bound / step_dev_ms,
-          card=card)
+          floor_device_ms=floor_dev_ms, host_us=post_host_us, card=card)
 
     # ---- 4. full backbone forward: kernel path (CUDA) vs plain path (CPU)
     t0 = time.time()
@@ -313,7 +438,7 @@ def main():
           plain_path_cpu_s=cpu_s, card=card)
     del model_gpu, model_cpu
 
-    # ---- 5. serve 3 denoise requests through the port's DenoiseService
+    # ---- 5. serve 3 denoise requests through a bf16 DenoiseService
     t0 = time.time()
     service = DenoiseService(
         None, device=dev, sigma=SIGMA, schedule="sigmoid", timesteps=1000,
@@ -322,98 +447,47 @@ def main():
     startup_s = time.time() - t0
     steps = service.t_start + 1
     check(service.t_start == 29, f"t* at sigma=0.1 on sigmoid T=1000: {service.t_start}")
-    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
-    work = tempfile.mkdtemp(prefix="smoke_", dir=os.path.join(ROOT, "build"))
-    sock = min(os.path.join(work, "s.sock"), os.path.relpath(os.path.join(work, "s.sock")),
-               key=len)
-    server = threading.Thread(target=serve_forever, args=(service, sock), daemon=True)
-    server.start()
-    try:
-        for _ in range(200):
-            if os.path.exists(sock):
-                break
-            time.sleep(0.05)
-        ping = request(sock, {"id": 0, "op": "ping"})
-        check(ping.get("ok") and ping["t_start"] == 29, f"ping: {ping}")
-        fused_resblock.launches = 0
-        fused_posterior_step.launches = 0
-        rng = np.random.default_rng(0)
-        latencies = []
-        for i in range(1, REQUESTS + 1):
-            noisy = np.clip(rng.normal(0, 0.3, (BATCH, 1, 64, 64)), -1, 1).astype(np.float32)
-            src = os.path.join(work, f"noisy_{i}.npy")
-            np.save(src, noisy)
-            tr = time.time()
-            resp = request(sock, {"id": i, "op": "denoise", "npy": src})
-            latency = time.time() - tr
-            check(resp.get("ok"), f"denoise request {i}: {resp}")
-            out = np.load(resp["out"])
-            check(out.shape == noisy.shape, f"request {i}: shape {out.shape}")
-            check(np.isfinite(out).all(), f"request {i}: non-finite output")
-            # the last step (t = 0) returns the clipped x0 prediction
-            check(np.abs(out).max() <= 1.0, f"request {i}: output outside [-1, 1]")
-            latencies.append(latency)
-            phase("denoise_request", tr, request=i, patches=BATCH, steps=steps,
-                  latency_s=latency, patches_per_s=BATCH / latency, card=card)
-        resblock_launches = fused_resblock.launches
-        step_launches = fused_posterior_step.launches
-        want_resblock = REQUESTS * steps * BLOCKS * 2  # two launches per block
-        want_step = REQUESTS * steps
-        check(resblock_launches == want_resblock,
-              f"resblock launches {resblock_launches} != {want_resblock}")
-        check(step_launches == want_step, f"posterior-step launches {step_launches} != {want_step}")
-        # one more request under the profiler: where the device time goes. It
-        # traces device activity only, since tracing every host op would slow
-        # the host, which now bounds the request
-        src = os.path.join(work, "noisy_profile.npy")
-        np.save(src, np.clip(rng.normal(0, 0.3, (BATCH, 1, 64, 64)), -1, 1).astype(np.float32))
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            tr = time.time()
-            resp = request(sock, {"id": REQUESTS + 1, "op": "denoise", "npy": src})
-            profiled_s = time.time() - tr
-        check(resp.get("ok"), f"profiled request: {resp}")
-        ops = device_ops(prof)
-        check(ops, "the profiler saw no device activity")
-        busy_us = sum(d for _, _, d in ops)
-        span_us = max(s + d for _, s, d in ops) - min(s for _, s, d in ops)
-        by_name = defaultdict(lambda: [0, 0.0])
-        for name, _, d in ops:
-            by_name[name][0] += 1
-            by_name[name][1] += d
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-        ours = {}  # the port's kernels, device time only
-        for key in ("conv3x3_bf16_kernel", "posterior_step_kernel"):
-            hits = [(k, t) for n, (k, t) in by_name.items() if key in n]
-            ours[key] = {"launches": sum(k for k, _ in hits),
-                         "ms": sum(t for _, t in hits) / 1e3}
-        phase("profile", tr, request=REQUESTS + 1, latency_s=profiled_s,
-              device_busy_ms=busy_us / 1e3, device_span_ms=span_us / 1e3,
-              idle_share_of_wall=1 - busy_us / 1e3 / (profiled_s * 1e3),
-              idle_share_of_span=1 - busy_us / span_us, kernels=ours,
-              top=[{"name": n[:90], "launches": k, "ms": t / 1e3, "share": t / busy_us}
-                   for n, (k, t) in top], card=card)
-        # the host's enqueue time of one sampling step of this service, and
-        # the conv wrapper's share of it (BLOCKS calls, from phase 2)
-        th = time.time()
-        xh = torch.zeros(STEP_SHAPE, device=dev)
-        ch = torch.zeros(STEP_SHAPE, device=dev)
-        gh = torch.Generator().manual_seed(0)
-        step_host_us = host_us(lambda: service.engine.p_sample_step(xh, 10, ch, gh), iters=5)
-        wrapper_us = BLOCKS * resblock[torch.bfloat16]["host_us"]
-        phase("host_split", th, step_host_ms=step_host_us / 1e3,
-              resblock_wrappers_ms=wrapper_us / 1e3,
-              resblock_wrappers_share=wrapper_us / step_host_us,
-              step_device_ms=busy_us / 1e3 / steps, card=card)
-        bye = request(sock, {"id": REQUESTS + 2, "op": "shutdown"})
-        check(bye.get("ok"), f"shutdown: {bye}")
-        server.join(timeout=30)
-        check(not server.is_alive(), "server thread did not stop")
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    served = serve_and_profile(service, REQUESTS, "bfloat16", card)
+    # the host's enqueue time of one sampling step of this service, and
+    # the conv wrapper's share of it (BLOCKS calls, from phase 2)
+    th = time.time()
+    xh = torch.zeros(STEP_SHAPE, device=dev)
+    ch = torch.zeros(STEP_SHAPE, device=dev)
+    gh = torch.Generator().manual_seed(0)
+    step_host_us = host_us(lambda: service.engine.p_sample_step(xh, 10, ch, gh), iters=5,
+                           reps=3)
+    wrapper_us = BLOCKS * resblock[torch.bfloat16]["host_us"]
+    phase("host_split", th, step_host_ms=step_host_us / 1e3,
+          resblock_wrappers_ms=wrapper_us / 1e3,
+          resblock_wrappers_share=wrapper_us / step_host_us,
+          step_device_ms=served["busy_ms"] / steps, card=card)
+    resblock_launches, step_launches = served["resblock_launches"], served["step_launches"]
     phase("serve", t0, startup_s=startup_s, requests=REQUESTS, patches_per_request=BATCH,
           blocks=BLOCKS, features=FEATURES, dtype="bfloat16", sigma=SIGMA, steps=steps,
-          latency_s=latencies, resblock_launches=resblock_launches,
+          latency_s=served["latencies"], resblock_launches=resblock_launches,
           posterior_step_launches=step_launches, card=card)
+    del service
+
+    # ---- 6. serve 2 denoise requests through an fp32 DenoiseService, the
+    # default of serve_torch.py and of the -u 0 CLI
+    t0 = time.time()
+    service = DenoiseService(
+        None, device=dev, sigma=SIGMA, schedule="sigmoid", timesteps=1000,
+        t_start="auto", batch=BATCH, bf16=False, blocks=BLOCKS, features=FEATURES, seed=0,
+    )
+    startup_s = time.time() - t0
+    check(service.t_start == 29, f"t* at sigma=0.1 on sigmoid T=1000: {service.t_start}")
+    served32 = serve_and_profile(service, FP32_REQUESTS, "float32", card)
+    check(served32["kernels"]["conv3x3_3xtf32_kernel"]["launches"] == steps * BLOCKS * 2,
+          f"profiled fp32 request: {served32['kernels']}")
+    phase("serve_fp32", t0, startup_s=startup_s, requests=FP32_REQUESTS,
+          patches_per_request=BATCH, blocks=BLOCKS, features=FEATURES, dtype="float32",
+          sigma=SIGMA, steps=steps, latency_s=served32["latencies"],
+          resblock_launches=served32["resblock_launches"],
+          posterior_step_launches=served32["step_launches"],
+          profiled_latency_s=served32["profiled_s"], device_busy_ms=served32["busy_ms"],
+          idle_share_of_wall=served32["idle_share_of_wall"], card=card)
+    del service
 
     r32, r16 = resblock[torch.float32], resblock[torch.bfloat16]
     kernels = [
@@ -425,13 +499,17 @@ def main():
          "bound_by": r16["bound_by"], "library_ms": r16["library_ms"], "dtype": "bfloat16",
          "device_ms": r16["device_ms"], "max_abs_err_fp32": r32["err"], "ms_fp32": r32["ms"],
          "plain_ms_fp32": r32["plain_ms"], "bound_ms_fp32": r32["bound_ms"],
-         "library_ms_fp32": r32["library_ms"], "device_ms_fp32": r32["device_ms"]},
+         "library_ms_fp32": r32["library_ms"], "device_ms_fp32": r32["device_ms"],
+         "bound_ms_3xtf32": r32["bound_ms_3xtf32"],
+         "share_of_bound_3xtf32": r32["share_of_bound_3xtf32"],
+         "launches_fp32": served32["resblock_launches"]},
         {"name": "fused_posterior_step", "route": "cuda",
          "source": "hicdiff_tpu_torch/csrc/sample_step.cu",
          "replaces": "hicdiff_tpu/kernels/sample_step.py:65",
          "launches": step_launches, "max_abs_err": step_err, "ms": step_ms,
          "plain_ms": step_plain_ms, "bound_ms": step_bound, "bound_by": step_bound_by,
-         "library_ms": None, "device_ms": step_dev_ms},
+         "library_ms": None, "device_ms": step_dev_ms, "floor_device_ms": floor_dev_ms,
+         "host_us": post_host_us, "launches_fp32": served32["step_launches"]},
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -11,11 +11,12 @@ a CUDA tensor it launches the hand-written kernel of `csrc/resblock.cu` twice
 (conv #1 with the scale-shift-SiLU epilogue, conv #2 with the x0.1 residual
 epilogue) or raises: there is no fallback.
 
-The CUDA kernels read the conv weight in their own layouts (`prepare_weight`):
-bf16 the N x K matrix of `pack_conv_weight`, fp32 the HWIO kernel as a K x N
-matrix. `fused_resblock` prepares it on every call; a module that calls the
-block many times with one weight prepares it once and calls
-`fused_resblock_prepared`.
+The CUDA kernels read the conv weight packed (`prepare_weight`): bf16 the
+N x K matrix of `pack_conv_weight`, fp32 that matrix split into its TF32 high
+and low parts (`tf32_split`), which the fp32 kernel multiplies as three TF32
+products (3xTF32) on the tensor cores. `fused_resblock` prepares the weight
+on every call; a module that calls the block many times with one weight
+prepares it once and calls `fused_resblock_prepared`.
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ from hicdiff_tpu_torch.kernels import _build
 
 __all__ = [
     "fused_resblock", "fused_resblock_prepared", "fused_resblock_reference",
-    "pack_conv_weight", "prepare_weight",
+    "pack_conv_weight", "prepare_weight", "tf32_round", "tf32_split",
 ]
 
 _CONV1, _CONV2 = 1, 2  # the epilogue modes of csrc/resblock.cu
@@ -60,18 +61,47 @@ def pack_conv_weight(kernel):
     return kernel.permute(3, 0, 1, 2).reshape(c, 9 * c).contiguous()
 
 
+def tf32_round(t):
+    """fp32 `t` rounded to TF32 (10 explicit mantissa bits, the low 13 bits
+    of the word cleared), to nearest with ties away from zero, as
+    cvt.rna.tf32.f32 rounds and csrc/resblock.cu's tf32_round computes: add
+    half of the dropped bits' range to the magnitude, then clear them.
+    inf and NaN pass through."""
+    bits = t.contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    return torch.where(torch.isfinite(t), rounded, t)
+
+
+def tf32_split(t):
+    """(hi, lo) = (tf32(t), tf32(t - hi)): hi + lo is within 2^-22 |t| of t."""
+    hi = tf32_round(t)
+    return hi, tf32_round(t - hi)
+
+
 def prepare_weight(kernel):
     """The conv weight as the CUDA kernel of its dtype reads it: bf16 takes
-    `pack_conv_weight(kernel)`, fp32 the HWIO kernel itself as a K x N matrix."""
-    return pack_conv_weight(kernel) if kernel.dtype == torch.bfloat16 else kernel.contiguous()
+    `pack_conv_weight(kernel)` (C, 9C); fp32 that matrix's `tf32_split`
+    planes stacked as (2, C, 9C), hi first."""
+    packed = pack_conv_weight(kernel)
+    if kernel.dtype == torch.bfloat16:
+        return packed
+    return torch.stack(tf32_split(packed))
+
+
+def _hwio_view(packed):
+    """The (3, 3, C, C) HWIO view of a packed (C, 9C) matrix."""
+    c = packed.shape[0]
+    return packed.view(c, 3, 3, c).permute(1, 2, 3, 0)
 
 
 def _hwio(weight):
-    """The (3, 3, C, C) HWIO view of a `prepare_weight` result."""
+    """The (3, 3, C, C) HWIO kernel of a `prepare_weight` result. For fp32
+    it is hi + lo, computed exactly in fp32 (22 significant bits), which is
+    within 2^-22 |w| of the kernel that was prepared: the weight the CUDA
+    kernel multiplies."""
     if weight.dtype != torch.bfloat16:
-        return weight
-    c = weight.shape[0]
-    return weight.view(c, 3, 3, c).permute(1, 2, 3, 0)
+        weight = weight[0] + weight[1]
+    return _hwio_view(weight)
 
 
 def _check(x, kernel, bias, scale, shift):
@@ -126,7 +156,7 @@ def _launch(fn, lib, src, weight, bias, scale, shift, res, out, mode):
     status = fn(
         src.data_ptr(), weight.data_ptr(), bias.data_ptr(), scale.data_ptr(),
         shift.data_ptr(), scale.stride(0), None if res is None else res.data_ptr(),
-        out.data_ptr(), b, h, w, c, mode, torch.cuda.current_stream(src.device).cuda_stream,
+        out.data_ptr(), b, h, w, c, mode, _build.current_stream(src.get_device()),
     )
     _build.check_status(lib, status, "fused_resblock")
     fused_resblock.launches += 1
@@ -135,7 +165,7 @@ def _launch(fn, lib, src, weight, bias, scale, shift, res, out, mode):
 def _fused_resblock_cuda(x, weight, bias, scale, shift):
     lib, fn = _conv3x3(x.dtype)
     _check_cuda(x, weight, bias, scale, shift)
-    with torch.cuda.device(x.device):
+    with _build.on_device(x.get_device()):
         hidden = torch.empty_like(x)
         out = torch.empty_like(x)
         _launch(fn, lib, x, weight, bias, scale, shift, None, hidden, _CONV1)
@@ -158,17 +188,17 @@ def fused_resblock(x, kernel, bias, scale, shift):
 
 def fused_resblock_prepared(x, weight, bias, scale, shift):
     """`fused_resblock` with the conv weight given as `prepare_weight(kernel)`.
-    A CPU tensor takes the plain version on the HWIO view of `weight`; CUDA
-    launches count in `fused_resblock.launches`."""
+    A CPU tensor takes the plain version on the HWIO kernel of `weight`
+    (`_hwio`); CUDA launches count in `fused_resblock.launches`."""
     c = x.shape[-1]
-    want = (c, 9 * c) if weight.dtype == torch.bfloat16 else (3, 3, c, c)
+    want = (c, 9 * c) if weight.dtype == torch.bfloat16 else (2, c, 9 * c)
     if tuple(weight.shape) != want:
         raise ValueError(f"a {weight.dtype} prepared weight has shape {want}, "
                          f"got {tuple(weight.shape)}")
-    kernel = _hwio(weight)
-    _check(x, kernel, bias, scale, shift)
+    # checked on a view of the (first) plane, which costs no device work
+    _check(x, _hwio_view(weight.view(-1, 9 * c)[:c]), bias, scale, shift)
     if x.device.type == "cpu":
-        return fused_resblock_reference(x, kernel, bias, scale, shift)
+        return fused_resblock_reference(x, _hwio(weight), bias, scale, shift)
     return _fused_resblock_cuda(x, weight, bias, scale, shift)
 
 

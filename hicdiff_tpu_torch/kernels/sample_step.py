@@ -16,8 +16,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
-import numpy as np
 import torch
 
 from hicdiff_tpu_torch.kernels import _build
@@ -26,9 +26,9 @@ __all__ = ["fused_posterior_step", "fused_posterior_step_reference"]
 
 
 def _noise_scale(post_log_var_t, noise_gate) -> float:
-    # sigma = exp(0.5 * logvar) in float32, as the JAX wrapper computes it
-    sigma = np.exp(np.float32(0.5) * np.float32(post_log_var_t))
-    return float(sigma * np.float32(noise_gate))
+    # sigma * gate with sigma = exp(logvar / 2), as the JAX wrapper computes
+    # it; the kernel receives it rounded to float32
+    return math.exp(0.5 * post_log_var_t) * noise_gate
 
 
 def fused_posterior_step_reference(
@@ -83,19 +83,20 @@ def fused_posterior_step(
         raise ValueError(f"x and eps must be float32, got {x.dtype} and {eps.dtype}")
     if not (x.is_contiguous() and eps.is_contiguous()):
         raise ValueError("x and eps must be contiguous")
+    if x.data_ptr() % 16 or eps.data_ptr() % 16:
+        raise ValueError("the CUDA kernel needs 16-byte aligned x and eps")
     if not 0 <= int(seed) < 2**64:
         raise ValueError(f"seed must be in [0, 2**64), got {seed}")
     x_next = torch.empty_like(x)
     x0 = torch.empty_like(x)
     if x.numel() == 0:
         return x_next, x0
-    with torch.cuda.device(x.device):
-        status = fn(
-            x.data_ptr(), eps.data_ptr(), x_next.data_ptr(), x0.data_ptr(), x.numel(),
-            float(sqrt_recip_acp_t), float(sqrt_recipm1_acp_t), float(post_coef1_t),
-            float(post_coef2_t), _noise_scale(post_log_var_t, noise_gate), int(seed),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
+    args = (x.data_ptr(), eps.data_ptr(), x_next.data_ptr(), x0.data_ptr(), x.numel(),
+            sqrt_recip_acp_t, sqrt_recipm1_acp_t, post_coef1_t, post_coef2_t,
+            _noise_scale(post_log_var_t, noise_gate), int(seed))
+    index = x.get_device()
+    with _build.on_device(index):
+        status = fn(*args, _build.current_stream(index))
     _build.check_status(lib, status, "fused_posterior_step")
     fused_posterior_step.launches += 1
     return x_next, x0

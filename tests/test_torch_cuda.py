@@ -37,16 +37,24 @@ def cuda_device():
 
 @pytest.mark.parametrize("dtype,tol,shape", [
     (torch.float32, 1e-4, (2, 10, 13, 256)),
+    (torch.float32, 1e-4, (8, 64, 64, 256)),
+    (torch.float32, 1e-4, (1, 6, 80, 256)),
+    (torch.float32, 1e-4, (2, 10, 13, 128)),
+    (torch.float32, 1e-4, (1, 5, 70, 384)),
+    (torch.float32, 1e-4, (1, 3, 9, 512)),
     (torch.bfloat16, 0.016, (8, 64, 64, 256)),
     (torch.bfloat16, 0.016, (2, 10, 13, 256)),
     (torch.bfloat16, 0.016, (1, 6, 80, 256)),
     (torch.bfloat16, 0.016, (2, 10, 13, 128)),
     (torch.bfloat16, 0.016, (1, 5, 70, 384)),
     (torch.bfloat16, 0.016, (1, 3, 9, 512)),
-], ids=["fp32", "bf16_main", "bf16_ragged", "bf16_two_column_tiles", "bf16_c128",
-        "bf16_c384", "bf16_c512"])
+], ids=["fp32", "fp32_main", "fp32_two_column_tiles", "fp32_c128", "fp32_c384", "fp32_c512",
+        "bf16_main", "bf16_ragged", "bf16_two_column_tiles", "bf16_c128", "bf16_c384",
+        "bf16_c512"])
 def test_resblock_kernel_matches_plain(cuda_device, dtype, tol, shape):
-    """fp32: sums over K = 9*C terms in another order; bf16: one ulp of |y| < 4.
+    """fp32: three TF32 products per term (each within 2^-22 |a||w| of the
+    fp32 product) summed over K = 9*C terms in another order; bf16: one ulp
+    of |y| < 4.
     (8,64,64,256) is the main path's shape; W = 13, 70 and 80 leave ragged
     column tiles, odd H a ragged row tile, W != H checks the row arithmetic;
     C = 128 and 384 leave the last 256-channel tile half empty (zero-filled
@@ -107,21 +115,39 @@ def test_backbone_kernel_path_matches_plain_path(cuda_device):
     assert (got - want).abs().max().item() <= 1e-4
 
 
-def test_block_cached_pack_matches_public_call(cuda_device):
-    """A residual block on the card runs on the weight it packed once; the
-    public HWIO call packs on the fly. Same bytes in, so the same bits out."""
+def _cached_vs_public(device, dtype):
+    """A residual block's output on the weight it prepared once, the public
+    HWIO call's, which prepares the same weight on the fly, the launches of
+    both, and the block's prepared conv weight."""
     torch.manual_seed(0)
-    block = HicedrnResBlock(256, device=cuda_device)
-    g = torch.Generator(device=cuda_device).manual_seed(1)
-    x = (torch.randn(2, 16, 16, 256, generator=g, device=cuda_device) * 0.5).bfloat16()
-    t_act = F.silu(torch.randn(2, 1024, generator=g, device=cuda_device)).bfloat16()
+    block = HicedrnResBlock(256, device=device)
+    g = torch.Generator(device=device).manual_seed(1)
+    x = (torch.randn(2, 16, 16, 256, generator=g, device=device) * 0.5).to(dtype)
+    t_act = F.silu(torch.randn(2, 1024, generator=g, device=device)).to(dtype)
     before = fused_resblock.launches
     with torch.no_grad():
         got = block(x, t_act)
         lin, conv = block.mlp[1], block.conv["proj"]
-        scale, shift = F.linear(t_act, lin.weight.bfloat16(), lin.bias.bfloat16()).chunk(2, -1)
-        kernel = conv.weight.permute(2, 3, 1, 0).bfloat16()
-        want = fused_resblock(x, kernel, conv.bias.bfloat16(), scale, shift)
+        scale, shift = F.linear(t_act, lin.weight.to(dtype), lin.bias.to(dtype)).chunk(2, -1)
+        kernel = conv.weight.permute(2, 3, 1, 0).to(dtype)
+        want = fused_resblock(x, kernel, conv.bias.to(dtype), scale, shift)
     torch.cuda.synchronize()
-    assert fused_resblock.launches == before + 4
+    return got, want, fused_resblock.launches - before, block._compute_weights(dtype)[2]
+
+
+def test_block_cached_pack_matches_public_call(cuda_device):
+    """A residual block on the card runs on the weight it packed once; the
+    public HWIO call packs on the fly. Same bytes in, so the same bits out."""
+    got, want, launches, _ = _cached_vs_public(cuda_device, torch.bfloat16)
+    assert launches == 4
+    assert torch.equal(got, want)
+
+
+def test_fp32_block_cached_pack_matches_public_call(cuda_device):
+    """The same for fp32: the block's cached (2, C, 9C) TF32 hi/lo pack and
+    the pack the public call makes are the same bytes, so the same bits out."""
+    got, want, launches, packed = _cached_vs_public(cuda_device, torch.float32)
+    assert launches == 4
+    assert got.dtype == torch.float32
+    assert packed.shape == (2, 256, 9 * 256)
     assert torch.equal(got, want)

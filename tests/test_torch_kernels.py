@@ -24,11 +24,14 @@ from hicdiff_tpu_torch.kernels.resblock import (
     fused_resblock_reference,
     pack_conv_weight,
     prepare_weight,
+    tf32_round,
+    tf32_split,
 )
 from hicdiff_tpu_torch.kernels.sample_step import fused_posterior_step
 
 STEP_SCALARS = (1.1, 0.5, 0.7, 0.3, -2.0)  # a, b, c1, c2, logvar
 TILE_H, TILE_W, BK = 2, 64, 64  # the bf16 kernel's output tile and k-block (csrc/resblock.cu)
+BK_F32 = 32  # the fp32 kernel's k-block: 32 channels, one 128-byte row
 
 
 def _block_inputs(shape, seed=0):
@@ -71,24 +74,24 @@ def test_resblock_plain_bf16_matches_pallas_kernel():
     assert np.abs(got.float().numpy() - pallas).max() <= 0.016
 
 
-def _tiled_conv(x, packed, bias):
-    """conv(x) + bias as the bf16 CUDA kernel decomposes it, in fp32. Each
+def _tiled_conv(x, packed, bias, bk=BK, product=lambda a, w: a @ w.T):
+    """conv(x) + bias as the CUDA kernels decompose it, in fp32. Each
     2-row x 64-column output tile (M = 128 pixels in [h][w] order) sums, over
-    the 9 taps and the C/64 input-channel slices, the shifted (2, 64, 64)
+    the 9 taps and the C/bk input-channel slices, the shifted (2, 64, bk)
     window of x, zero-filled outside x as TMA fills it, times the packed
-    weight's (C, 64) slice of that k-block."""
+    weight's (..., C, bk) slice of that k-block: `product(a, w)` of each."""
     b, h, w, c = x.shape
     th, tw = -(-h // TILE_H), -(-w // TILE_W)
     xpad = torch.zeros(b, th * TILE_H + 2, tw * TILE_W + 2, c)
     xpad[:, 1:h + 1, 1:w + 1] = x
     acc = torch.zeros(b, th, tw, TILE_H * TILE_W, c)
-    for kb in range(9 * c // BK):
-        tap, c0 = divmod(kb * BK, c)
+    for kb in range(9 * c // bk):
+        tap, c0 = divmod(kb * bk, c)
         dy, dx = divmod(tap, 3)
-        window = xpad[:, dy:dy + th * TILE_H, dx:dx + tw * TILE_W, c0:c0 + BK]
-        a = (window.reshape(b, th, TILE_H, tw, TILE_W, BK).permute(0, 1, 3, 2, 4, 5)
-             .reshape(b, th, tw, TILE_H * TILE_W, BK))
-        acc += a @ packed[:, kb * BK:(kb + 1) * BK].T
+        window = xpad[:, dy:dy + th * TILE_H, dx:dx + tw * TILE_W, c0:c0 + bk]
+        a = (window.reshape(b, th, TILE_H, tw, TILE_W, bk).permute(0, 1, 3, 2, 4, 5)
+             .reshape(b, th, tw, TILE_H * TILE_W, bk))
+        acc += product(a, packed[..., kb * bk:(kb + 1) * bk])
     y = (acc.reshape(b, th, tw, TILE_H, TILE_W, c).permute(0, 1, 3, 2, 4, 5)
          .reshape(b, th * TILE_H, tw * TILE_W, c))
     return y[:, :h, :w] + bias
@@ -113,14 +116,76 @@ def test_packed_weight_in_tiled_decomposition_matches_reference_and_pallas(shape
     assert np.abs(got - pallas).max() <= 2e-5
 
 
+def _three_tf32(a, w):
+    """a @ w[0].T as the fp32 kernel computes it from w = (hi, lo) planes:
+    A split as the kernel splits it, then the three TF32 products, small
+    terms first, summed in fp32 (a product of two TF32 values is exact)."""
+    a_hi, a_lo = tf32_split(a)
+    return a_lo @ w[0].T + a_hi @ w[1].T + a_hi @ w[0].T
+
+
+def _one_tf32(a, w):
+    return tf32_round(a) @ w[0].T
+
+
+def test_tf32_round_ties_away_and_split_is_exact_to_2e22():
+    # 1 + 2^-11 is halfway between 1 and 1 + 2^-10: ties away from zero
+    # (round to nearest even would give 1)
+    tie = torch.tensor([1 + 2.0**-11, -(1 + 2.0**-11), 1 + 3 * 2.0**-11, 0.0])
+    assert tf32_round(tie).tolist() == [1 + 2.0**-10, -(1 + 2.0**-10), 1 + 2.0**-9, 0.0]
+    special = torch.tensor([float("inf"), float("-inf"), float("nan")])
+    assert torch.equal(tf32_round(special)[:2], special[:2])
+    assert tf32_round(special)[2].isnan()
+    w = torch.from_numpy(np.random.default_rng(4).normal(size=4096).astype(np.float32))
+    w = w * torch.logspace(-6, 3, 4096)
+    hi, lo = tf32_split(w)
+    for part in (hi, lo):
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    assert ((hi + lo - w).abs() <= 2.0**-22 * w.abs()).all()
+    assert ((hi - w).abs() <= 2.0**-11 * w.abs()).all()
+
+
+@pytest.mark.parametrize("shape", [(1, 10, 13, 128), (1, 6, 80, 128), (1, 16, 16, 256)],
+                         ids=["ragged_w13", "two_column_tiles", "c256"])
+def test_3xtf32_tiled_decomposition_matches_reference_and_pallas(shape):
+    """The fp32 kernel's arithmetic: the tiled decomposition with 32-channel
+    k-blocks, the weight as prepare_weight's (hi, lo) planes, A split per
+    k-block, three TF32 products. It holds the block to the plain version and
+    the Pallas kernel at 2e-5, and a single TF32 product per term misses the
+    Pallas result by at least 100x more: the split is what gives fp32."""
+    _, _, _, *args = _block_inputs(shape)
+    x, kernel, bias, scale, shift = (torch.tensor(a) for a in args)
+    planes = prepare_weight(kernel)
+    assert planes.shape == (2, shape[-1], 9 * shape[-1]) and planes.is_contiguous()
+
+    def block(product):
+        hidden = F.silu(_tiled_conv(x, planes, bias, BK_F32, product)
+                        * (scale[:, None, None] + 1.0) + shift[:, None, None])
+        return (_tiled_conv(hidden, planes, bias, BK_F32, product) * 0.1 + x).numpy()
+
+    got, single = block(_three_tf32), block(_one_tf32)
+    want = fused_resblock_reference(x, kernel, bias, scale, shift).numpy()
+    pallas = np.asarray(jax_fused_resblock(*map(jnp.asarray, args), interpret=True))
+    err = np.abs(got - pallas).max()
+    assert np.abs(got - want).max() <= 2e-5
+    assert err <= 2e-5
+    assert np.abs(single - pallas).max() >= 100 * err
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_prepared_weight_gives_the_hwio_call(dtype):
-    """On the CPU the prepared path runs the plain version on the HWIO view of
-    the prepared weight: bit for bit the public call."""
+    """On the CPU the prepared path runs the plain version on the HWIO kernel
+    of the prepared weight. bf16: bit for bit the public call. fp32: the
+    prepared kernel is hi + lo, within 2^-22 |w| of w, so the two calls agree
+    to 1e-6 but not bitwise."""
     _, _, _, *args = _block_inputs((2, 6, 5, 128), seed=3)
     x, kernel, bias, scale, shift = (torch.tensor(a).to(dtype) for a in args)
     got = fused_resblock_prepared(x, prepare_weight(kernel), bias, scale, shift)
-    assert torch.equal(got, fused_resblock(x, kernel, bias, scale, shift))
+    want = fused_resblock(x, kernel, bias, scale, shift)
+    if dtype == torch.bfloat16:
+        assert torch.equal(got, want)
+    else:
+        assert (got - want).abs().max().item() <= 1e-6
     with pytest.raises(ValueError, match="prepared weight"):
         fused_resblock_prepared(x, kernel.reshape(9 * 128, 128), bias, scale, shift)
 
