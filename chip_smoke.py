@@ -98,6 +98,25 @@ bf16 gradient than that lies from the CPU's fp32 one); `pretrain_zoo` runs
 sr3, att and unet with --bf16; `zoo_forward` holds bf16 hicedrn_att to the
 CPU; and the -u 0 and -u 1 CLI phases repeat their default run with --bf16.
 
+The reference's weight format: phase `reference_weights` exports the
+inference_cli phase's full-width checkpoint with
+tools/torch_export_checkpoint.py --diffusion-prefix, converts it back with
+tools/torch_convert_checkpoint.py, and runs the -u 0 bf16 CLI on the result:
+its quartet equals the bf16 run's, byte for byte, with the same launches.
+
+The baselines (plain PyTorch: the JAX package runs them through no Pallas
+kernel, so no port kernel may launch): `baselines_forward` holds each of
+the six table baselines, hiedsrgan's generator, the three critics and the
+perceptual VGG19, at their published sizes, to the CPU within 1e-3 of its
+largest value at batch 8 and times it at batch 64; on one synthetic cell
+(210 train patches, 12 val, the 120 test patches), `pretrain_baselines` runs
+pretrain_baselines_torch.py for one epoch of the six, then of hiedsrgan at
+32 blocks (step ms by CUDA events, epoch s, peak memory),
+`baseline_step_vs_plain` takes one step of each on card and CPU from the
+same weights (losses 1e-4 relative, BatchNorm statistics 1e-5), and
+`stard_metric_normal` scores the six checkpoints over the test split with
+sample/stard_metric_normal_torch.py.
+
 Times: `ms`, `plain_ms` and `library_ms` are CUDA-event times of back-to-back
 calls (device time plus any gaps where the device waits for the host);
 `device_ms` and its kin are the summed device durations from torch.profiler.
@@ -125,6 +144,7 @@ with a non-zero exit. Without CUDA it fails before printing any result.
 The last line is {"ok": true, "device": {...}}.
 """
 import contextlib
+import copy
 import dataclasses
 import json
 import os
@@ -495,7 +515,8 @@ def cli_bf16_run(phase_name, run, dev, card, kw, want_launches):
     True)`): launch counters (`want_launches`, those of the fp32 run: the
     same kernels a step), the quartet's prediction finite, the metrics,
     wall time and patches/s with the harness's split; then a profiled
-    repeat for the idle share and the device breakdown."""
+    repeat for the idle share and the device breakdown. Returns the counted
+    run's result."""
     import inference_torch
     from hicdiff_tpu_torch.kernels.resblock import fused_resblock
     from hicdiff_tpu_torch.kernels.sample_step import fused_posterior_step
@@ -536,6 +557,7 @@ def cli_bf16_run(phase_name, run, dev, card, kw, want_launches):
     phase(phase_name, tr, run=f"{run}_bf16_profiled", profiled_wall_s=profiled_s,
           device_busy_s=busy_us / 1e6, idle_share_of_wall=1 - busy_us / 1e6 / profiled_s,
           kernels=ours, top=top, card=card)
+    return res
 
 
 def inference_cli(dev, card):
@@ -653,11 +675,78 @@ def inference_cli(dev, card):
               plain_path_cpu_s=cpu_s, card=card)
 
         # run 3: the default run with --bf16
-        cli_bf16_run("inference_cli", "default", dev, card, kw,
-                     dict(resblock_launches=resblock_launches, step_launches=step_launches))
+        want = dict(resblock_launches=resblock_launches, step_launches=step_launches)
+        res_bf16 = cli_bf16_run("inference_cli", "default", dev, card, kw, want)
+
+        # the same weights through the reference's .pytorch format and back
+        refw = reference_weights(dev, card, root, ckpt, kw, res_bf16, want)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return dict(resblock_launches=resblock_launches, step_launches=step_launches)
+    return dict(resblock_launches=resblock_launches, step_launches=step_launches,
+                refw_resblock_launches=refw["resblock_launches"],
+                refw_step_launches=refw["step_launches"])
+
+
+def reference_weights(dev, card, root, ckpt, kw, res_bf16, want_launches):
+    """Phase `reference_weights`: the inference_cli phase's full-width
+    checkpoint exported by tools/torch_export_checkpoint.py
+    --diffusion-prefix (the reference's GaussianDiffusion state-dict
+    layout), converted back by tools/torch_convert_checkpoint.py (params
+    bit-equal to the original), then the -u 0 bf16 CLI on the converted file
+    with the same seed: its Outputs quartet must equal the bf16 run's
+    byte for byte (same weights, seeds and kernels), and the launch counters
+    show both kernels ran as there. Returns the launch counts."""
+    import inference_torch
+    from hicdiff_tpu_torch.kernels.resblock import fused_resblock
+    from hicdiff_tpu_torch.kernels.sample_step import fused_posterior_step
+    from hicdiff_tpu_torch.train.checkpoint import load_checkpoint
+    from tools import torch_convert_checkpoint, torch_export_checkpoint
+
+    t0 = time.time()
+    exported = os.path.join(root, "Model_Weights", "reference.pytorch")
+    back = os.path.join(root, "Model_Weights", "from_reference.msgpack")
+    torch_export_checkpoint.main([ckpt, "--out", exported, "--diffusion-prefix"])
+    export_s = time.time() - t0
+    tc = time.time()
+    torch_convert_checkpoint.main([exported, "--out", back])
+    convert_s = time.time() - tc
+    keys = torch.load(exported, map_location="cpu", weights_only=True).keys()
+    check(all(k.startswith("model.") for k in keys), "reference_weights: unprefixed keys")
+    leaves = []
+
+    def walk(a, b):
+        if isinstance(a, dict):
+            check(a.keys() == b.keys(), f"reference_weights: keys {sorted(a)} != {sorted(b)}")
+            for k in a:
+                walk(a[k], b[k])
+        else:
+            leaves.append(np.array_equal(a, b) and a.dtype == b.dtype)
+
+    walk(load_checkpoint(back, only={"params"})["params"],
+         load_checkpoint(ckpt, only={"params"})["params"])
+    check(all(leaves), "reference_weights: params changed in the round trip")
+
+    fused_resblock.launches = 0
+    fused_posterior_step.launches = 0
+    tr = time.time()
+    res = inference_torch.Inference(device=dev, bf16=True, out_tag="_bf16_refw",
+                                    **{**kw, "weights": back})
+    torch.cuda.synchronize()
+    run_s = time.time() - tr
+    launches = dict(resblock_launches=fused_resblock.launches,
+                    step_launches=fused_posterior_step.launches)
+    check(launches == want_launches,
+          f"reference_weights launches {launches} != the bf16 run's {want_launches}")
+    equal = {}
+    for what in ("target", "noisy", "predict", "inds"):
+        a = np.load(os.path.join(res["outdir"], f"{what}.npy"))
+        b = np.load(os.path.join(res_bf16["outdir"], f"{what}.npy"))
+        equal[what] = bool(a.shape == b.shape and a.dtype == b.dtype and np.array_equal(a, b))
+    check(all(equal.values()), f"reference_weights: quartet differs from the bf16 run {equal}")
+    phase("reference_weights", t0, export_s=export_s, convert_s=convert_s,
+          pytorch_bytes=os.path.getsize(exported), keys=len(keys), run_wall_s=run_s,
+          patches=len(res["inds"]), quartet_bit_equal=equal, **launches, card=card)
+    return launches
 
 
 def library_dgrad(gy, z, w_oihw, scale, shift, stream=None):
@@ -2027,6 +2116,268 @@ def zoo(dev, card):
                 pretrain_bf16=pretrain_bf16)
 
 
+# the baselines' synthetic cell: the train phase's train and val
+# chromosomes (210 train patches, 12 val) and the CLI cell's test ones (120)
+BASELINE_BINS = {"train": TRAIN_BINS["train"], "val": TRAIN_BINS["val"], "test": CLI_TEST_BINS}
+BASELINE_TOL = 1e-3  # card vs CPU, of the CPU's largest value (TF32 off)
+BASELINE_STEP_BATCH = 3  # two real samples and a wrap-padded repeat, on card and CPU
+
+
+def _baseline_rows():
+    """(row, ctor(device=, generator=), input size) of every baseline module
+    at the size the JAX registry builds it: the six table baselines,
+    hiedsrgan's generator, the three critics and the perceptual VGG19."""
+    from hicdiff_tpu_torch.metrics.losses import VGGFeatures
+    from hicdiff_tpu_torch.models import baselines
+    from hicdiff_tpu_torch.models.zoo import BASELINES, TABLE_BASELINES
+
+    rows = [(n, BASELINES[n][0], 76 if BASELINES[n][1] else 64)
+            for n in (*TABLE_BASELINES, "hiedsrgan")]
+    rows += [(n, getattr(baselines, n), 64)
+             for n in ("DeepHiCDiscriminator", "HiCSRDiscriminator", "HiedsrDiscriminator")]
+    return rows + [("VGGFeatures", VGGFeatures, 64)]
+
+
+def _port_kernel_launches():
+    """Every launch counter of the port's kernels, summed."""
+    from hicdiff_tpu_torch.kernels.sample_step import fused_posterior_step
+
+    return sum(c.launches for c in (*_launch_counts().values(), fused_posterior_step))
+
+
+def baselines_forward(dev, card):
+    """Phase `baselines_forward`: each baseline module at its published
+    width and depth, seeded on the CPU and copied to the card, eval mode:
+    the card's forward at batch 8 against the CPU's within BASELINE_TOL of
+    the CPU's largest value, then CUDA-event ms at batch 64. They are plain
+    PyTorch (cuDNN convs): no port kernel launches. Returns ms by row."""
+    g = torch.Generator().manual_seed(21)
+    out = {}
+    for i, (name, ctor, size) in enumerate(_baseline_rows()):
+        t0 = time.time()
+        launched = _port_kernel_launches()
+        cpu = ctor(device="cpu", generator=torch.Generator().manual_seed(100 + i))
+        gpu = copy.deepcopy(cpu).to(dev)
+        x8 = torch.rand(8, size, size, 1, generator=g) * 2 - 1
+        x64 = (torch.rand(64, size, size, 1, generator=g) * 2 - 1).to(dev)
+        with torch.no_grad():
+            tc = time.time()
+            want = cpu(x8)
+            cpu_s = time.time() - tc
+            got = gpu(x8.to(dev)).cpu()
+            check(got.shape == want.shape and torch.isfinite(got).all().item(),
+                  f"baselines_forward {name}: output {tuple(got.shape)}")
+            err, scale = (got - want).abs().max().item(), want.abs().max().item()
+            check(err <= BASELINE_TOL * scale,
+                  f"baselines_forward {name}: max-abs {err} > {BASELINE_TOL} x {scale}")
+            heavy = type(cpu).__name__ == "HicedrnGenerator"  # 66 convs at 256 channels
+            ms = cuda_ms(lambda: gpu(x64), iters=2 if heavy else 10)
+        check(_port_kernel_launches() == launched, f"baselines_forward {name}: a port kernel ran")
+        phase("baselines_forward", t0, model=name, cls=type(cpu).__name__,
+              params=sum(p.numel() for p in cpu.parameters()), shape_batch8=tuple(x8.shape),
+              out_shape=tuple(want.shape), max_abs_err=err, cpu_largest=scale,
+              tol_of_largest=BASELINE_TOL, plain_cpu_s_batch8=cpu_s, ms_batch64=ms,
+              dtype="float32", card=card)
+        out[name] = ms
+        del cpu, gpu, x64
+    return out
+
+
+def pretrain_baselines(dev, card, root):
+    """Phase `pretrain_baselines`: pretrain_baselines_torch.py on the card,
+    `--models hiedsr hicarn deephic hicsr unet hicplus -e 1`, then
+    `--models hiedsrgan -e 1` at 32 blocks, batch 16 (the default) on the
+    baselines' cell: each step timed by CUDA events (its l2_step or
+    gan_step), the epoch's seconds and losses from the JSONL log, peak
+    memory per model, the checkpoints by their names, no port kernel."""
+    import pretrain_baselines_torch as pt
+    from hicdiff_tpu_torch.models.zoo import TABLE_BASELINES
+
+    steps, peaks, train_s, current = defaultdict(list), {}, {}, {}
+    originals = {k: getattr(pt, k) for k in ("l2_step", "gan_step", "train_one",
+                                              "train_hiedsrgan")}
+
+    def timed_step(fn):
+        def step(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            result = fn(*args, **kwargs)
+            end.record()
+            steps[current["name"]].append((start, end))
+            return result
+        return step
+
+    def peak_of(fn, name_of):
+        def run(*args, **kwargs):
+            current["name"] = name_of(args)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.time()
+            result = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            train_s[current["name"]] = time.time() - t
+            peaks[current["name"]] = torch.cuda.max_memory_allocated() / 1e9
+            return result
+        return run
+
+    pt.l2_step = timed_step(originals["l2_step"])
+    pt.gan_step = timed_step(originals["gan_step"])
+    pt.train_one = peak_of(originals["train_one"], lambda args: args[0])
+    pt.train_hiedsrgan = peak_of(originals["train_hiedsrgan"], lambda args: "hiedsrgan")
+    t0 = time.time()
+    launched = _port_kernel_launches()
+    common = ["-e", "1", "-s", str(SIGMA), "--root", root, "--device", str(dev)]
+    try:
+        results = pt.main(["--models", *TABLE_BASELINES, *common])
+        results.update(pt.main(["--models", "hiedsrgan", *common]))
+    finally:
+        for k, fn in originals.items():
+            setattr(pt, k, fn)
+    torch.cuda.synchronize()
+    check(_port_kernel_launches() == launched, "pretrain_baselines: a port kernel ran")
+    records = [json.loads(line) for line in
+               open(os.path.join(root, "logs", "pretrain_baselines_cell1.jsonl"))]
+    for name in (*TABLE_BASELINES, "hiedsrgan"):
+        path, best = results[name]
+        check(os.path.exists(path) and np.isfinite(best), f"pretrain_baselines {name}: {path}")
+        epoch = next(r for r in records if r["model"] == name and r["Epoch"] == 1)
+        losses = {k: v for k, v in epoch.items() if "loss" in k}
+        check(all(np.isfinite(v) for v in losses.values()), f"pretrain_baselines {name} {losses}")
+        recal = [r["valid/loss"] for r in records if r["model"] == name
+                 and r["Epoch"] == "recalibrated"]
+        step_ms = [a.elapsed_time(b) for a, b in steps[name]]
+        check(len(step_ms) == 14, f"pretrain_baselines {name}: {len(step_ms)} steps")
+        phase("pretrain_baselines", t0, model=name, batch=16, steps=len(step_ms),
+              step_ms=step_ms, steady_step_ms_mean=float(np.mean(step_ms[1:-1])),
+              epoch_s=epoch["epoch_seconds"], train_s=train_s[name],
+              peak_memory_gb=peaks[name], **losses,
+              recalibrated_valid_loss=recal[0] if recal else None, best_valid_loss=best,
+              checkpoint_bytes=os.path.getsize(path),
+              cut="data scale only: 14 train chromosomes of 320 bins; the registry's widths",
+              card=card)
+    return results
+
+
+def baseline_step_vs_plain(dev, card):
+    """Phase `baseline_step_vs_plain`: one pretrain_baselines_torch step of
+    each table baseline (l2_step) and of hiedsrgan (gan_step, srgan critic)
+    on the card and on the CPU, from the same seeded weights and the same
+    wrap-padded batch of BASELINE_STEP_BATCH: the losses within 1e-4
+    relative, every BatchNorm running statistic within 1e-5 of its tensor's
+    largest value."""
+    import pretrain_baselines_torch as pt
+    from hicdiff_tpu_torch.metrics.losses import VGGFeatures
+    from hicdiff_tpu_torch.models.baselines import HiedsrDiscriminator
+    from hicdiff_tpu_torch.models.hicedrn import HicedrnGenerator
+    from hicdiff_tpu_torch.models.zoo import BASELINES, TABLE_BASELINES
+
+    def stats(model):
+        return {k: v.cpu() for k, v in model.state_dict().items()
+                if k.endswith(("running_mean", "running_var"))}
+
+    g = torch.Generator().manual_seed(31)
+    for i, name in enumerate((*TABLE_BASELINES, "hiedsrgan")):
+        t0 = time.time()
+        x = (torch.rand(2, 64, 64, 1, generator=g) * 2 - 1).numpy()
+        y = np.clip(x + 0.1 * torch.randn(x.shape, generator=g).numpy(), -1, 1)
+        (x, y), w = pt.wrap_pad((x, y), BASELINE_STEP_BATCH)
+        seed = torch.Generator().manual_seed(200 + i)
+        if name == "hiedsrgan":
+            cpu_models = (HicedrnGenerator(device="cpu", generator=seed),
+                          HiedsrDiscriminator(device="cpu", generator=seed),
+                          VGGFeatures(device="cpu", generator=seed))
+        else:
+            cpu_models = (BASELINES[name][0](device="cpu", generator=seed),)
+        card_models = tuple(copy.deepcopy(m).to(dev) for m in cpu_models)
+        out, seconds = [], []
+        for models, d in ((card_models, dev), (cpu_models, "cpu")):
+            xs, ys, ws = (torch.from_numpy(np.ascontiguousarray(a)).to(d) for a in (x, y, w))
+            tc = time.time()
+            if name == "hiedsrgan":
+                gen, disc, vgg = models
+                vgg.requires_grad_(False)
+                g_loss, d_loss, parts = pt.gan_step(
+                    gen, disc, vgg, pt.adam(gen.parameters(), 1e-4),
+                    pt.adam(disc.parameters(), 1e-4), xs, ys, ws)
+                losses = [g_loss.item(), d_loss.item(), *(p.item() for p in parts)]
+                bn = stats(disc)
+            else:
+                model = models[0]
+                prep, prep_target = pt.prep_fns(name)
+                losses = [pt.l2_step(model, pt.adam(model.parameters(), 1e-4), prep(xs),
+                                     prep_target(ys), ws, pt.HAS_BN[name]).item()]
+                bn = stats(model)
+            seconds.append(time.time() - tc)
+            out.append((losses, bn))
+        (card_losses, card_bn), (cpu_losses, cpu_bn) = out
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
+        check(loss_rel <= 1e-4, f"baseline_step_vs_plain {name}: losses {card_losses} vs "
+                                f"{cpu_losses}")
+        stats_err = max([(card_bn[k] - v).abs().max().item() / v.abs().max().item()
+                         for k, v in cpu_bn.items()], default=0.0)
+        check(stats_err <= 1e-5, f"baseline_step_vs_plain {name}: running stats {stats_err}")
+        phase("baseline_step_vs_plain", t0, model=name, batch=BASELINE_STEP_BATCH,
+              mask=w.tolist(), losses_card=card_losses, losses_cpu=cpu_losses,
+              loss_rel_err=loss_rel, loss_tol_rel=1e-4, bn_tensors=len(cpu_bn),
+              bn_stats_err_of_largest=stats_err, bn_tol=1e-5, card_step_s=seconds[0],
+              plain_cpu_step_s=seconds[1], card=card)
+
+
+def stard_metric_normal(dev, card, root):
+    """Phase `stard_metric_normal`: sample/stard_metric_normal_torch.py on
+    the card over the baselines' cell's 120-patch test split with the
+    checkpoints pretrain_baselines wrote: each model's checkpoint found,
+    its prediction quartet finite, its seven metrics finite, the table
+    written; the wall time and the harness's split."""
+    import sample.stard_metric_normal_torch as smn
+    from hicdiff_tpu_torch.models.zoo import TABLE_BASELINES
+
+    t0 = time.time()
+    launched = _port_kernel_launches()
+    results = smn.main(["-n", "1", "-l", "Human", "-s", str(SIGMA), "--root", root,
+                        "--device", str(dev)])
+    torch.cuda.synchronize()
+    wall_s = time.time() - t0
+    check(_port_kernel_launches() == launched, "stard_metric_normal: a port kernel ran")
+    per_model = {}
+    for name in TABLE_BASELINES:
+        res, had = results[name]
+        pred = np.load(os.path.join(res["outdir"], "predict.npy"))
+        check(had, f"stard_metric_normal {name}: no checkpoint")
+        check(pred.shape == (len(CLI_TEST_CHROMS) * 30, 1, 64, 64) and np.isfinite(pred).all(),
+              f"stard_metric_normal {name}: predict {pred.shape}")
+        check(len(res["metrics"]) == 7 and all(np.isfinite(v) for v in res["metrics"].values()),
+              f"stard_metric_normal {name}: metrics {res['metrics']}")
+        tm = res["timing"]
+        per_model[name] = dict(metrics=res["metrics"], setup_s=tm["setup"],
+                               dispatch_s=tm["dispatch"], fetch_s=tm["fetch"],
+                               metrics_s=tm["metrics"], save_s=tm["save"])
+    table = open(os.path.join(root, "Metrics", f"Human1_deno_{SIGMA}_normal.txt")).read()
+    check(all(f"\n{n}\n" in table for n in TABLE_BASELINES) and table.count("gds:") == 6,
+          "stard_metric_normal: the Metrics table")
+    phase("stard_metric_normal", t0, wall_s=wall_s, patches=len(CLI_TEST_CHROMS) * 30,
+          batch=64, models=per_model, card=card)
+    return wall_s
+
+
+def baselines(dev, card):
+    """The baselines' phases, in order, on one synthetic cell."""
+    from hicdiff_tpu_torch.data.datamodule import HUMAN_SPLITS
+
+    forward = baselines_forward(dev, card)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="smoke_baselines_", dir=os.path.join(ROOT, "build"))
+    split_of = {c: k for k, cs in HUMAN_SPLITS.items() for c in cs}
+    try:
+        write_synthetic_cell(root, lambda c: BASELINE_BINS[split_of[c]])
+        pretrain_baselines(dev, card, root)
+        baseline_step_vs_plain(dev, card)
+        stard_metric_normal(dev, card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return forward
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -2324,6 +2675,10 @@ def main():
     zoo_cli, zoo_pre = zoo_counts["cli"], zoo_counts["pretrain"]
     zoo_pre_bf16 = zoo_counts["pretrain_bf16"]
 
+    # ---- 12. the baselines: every module's forward against its plain CPU run,
+    # pretrain_baselines_torch.py, one step of each vs the CPU, their metrics
+    baselines(dev, card)
+
     r32, r16 = resblock[torch.float32], resblock[torch.bfloat16]
     kernels = [
         {"name": "fused_resblock", "route": "cuda",
@@ -2339,6 +2694,7 @@ def main():
          "share_of_bound_3xtf32": r32["share_of_bound_3xtf32"],
          "launches_fp32": served32["resblock_launches"],
          "launches_cli": cli["resblock_launches"],
+         "launches_reference_weights_cli": cli["refw_resblock_launches"],
          "launches_train": train_launches["fused_resblock"],
          "launches_train_bf16": train_bf16["fused_resblock"],
          "launches_ddrm_cli": cli_ddrm["resblock_launches"],
@@ -2355,7 +2711,9 @@ def main():
          "plain_ms": step_plain_ms, "bound_ms": step_bound, "bound_by": step_bound_by,
          "library_ms": None, "device_ms": step_dev_ms, "floor_device_ms": floor_dev_ms,
          "host_us": post_host_us, "launches_fp32": served32["step_launches"],
-         "launches_cli": cli["step_launches"], "launches_ddrm_cli": cli_ddrm["step_launches"],
+         "launches_cli": cli["step_launches"],
+         "launches_reference_weights_cli": cli["refw_step_launches"],
+         "launches_ddrm_cli": cli_ddrm["step_launches"],
          "launches_cli_zoo": {k: v["step_launches"] for k, v in zoo_cli.items()}},
     ]
     # the backward: port-only kernels, no Pallas kernel to replace

@@ -8,7 +8,10 @@ metrics harness and exports), the serving daemon (`serve.DenoiseService`)
 and fp32 training (`train_torch.py`, `train.trainer.Trainer`); and the
 diffusion-backbone zoo (`models.zoo.DIFFUSION_BACKBONES`: the hicedrn
 variants and the U-Nets) with the cond, uncond and sr3 engines, through
-`inference_torch.py --model` and `pretrain_torch.py`. Both Pallas kernels of the JAX package have
+`inference_torch.py --model` and `pretrain_torch.py`; and the baseline zoo
+(`models.baselines`, `models.hicedrn.HicedrnGenerator`, `models.zoo.BASELINES`,
+`metrics.losses`) through `pretrain_baselines_torch.py` and
+`sample/stard_metric_normal_torch.py`. Both Pallas kernels of the JAX package have
 hand-written CUDA counterparts under `csrc/`, and so does the residual
 block's backward, which the JAX package leaves to autodiff; all are built
 for Hopper (`sm_90a`) on first use by `kernels._build`. Module names mirror the JAX package's; public

@@ -10,9 +10,17 @@ casts its input and weights to it, as a flax layer with `dtype=` does; with
 None it computes in its input's dtype. The normalizations keep their
 parameters in fp32, so a bf16 input comes out of them in fp32, as JAX's type
 promotion makes it.
+
+The baselines (`models/baselines.py`) mix three inits, each a layer kind of
+the JAX package: its `Conv2d` wrapper (PyTorch's default), flax's default for
+a bare `nn.Conv` / `nn.ConvTranspose` (LeCun: a truncated normal scaled by
+fan-in, zero bias), and the kaiming normal of `Unet2D`. `init_layers` draws
+each layer by its `init_kind`; `BatchNorm` is flax's, with its running
+statistics as buffers.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -21,7 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = [
-    "ChannelLayerNorm", "NoiseLevelMLP", "ParamCache", "SR3PositionalEncoding",
+    "BatchNorm", "ChannelLayerNorm", "frozen_batch_stats", "init_layers", "NoiseLevelMLP", "ParamCache", "SR3PositionalEncoding",
     "SinusoidalPosEmb", "TimeMLP", "conv_nhwc", "init_torch_default", "layer_norm_channels",
     "linear",
 ]
@@ -167,3 +175,106 @@ def init_torch_default(module: nn.Module, generator: torch.Generator) -> None:
             m.reset_parameters()
         elif isinstance(m, ChannelLayerNorm):
             m.g.fill_(1.0)
+
+
+class BatchNorm(nn.Module):
+    """flax.linen.BatchNorm (momentum 0.99, epsilon 1e-5) over the channel
+    axis 1 of an NCHW tensor: `weight` and `bias` are flax's scale and
+    bias, the buffers `running_mean` and `running_var` its batch_stats.
+
+    forward(x, train): train=False normalizes with the running statistics;
+    train=True with the batch's mean and biased variance E[x^2] - E[x]^2
+    (clipped at 0), computed in fp32 and differentiated through, and moves
+    the running statistics toward them, as flax's mutable batch_stats:
+    new = 0.99 * old + 0.01 * batch. torch.nn.BatchNorm2d differs in both:
+    its momentum weights the new value, and it keeps the unbiased variance.
+    Inside `frozen_batch_stats` a train-mode call leaves them as they are,
+    as a flax call whose batch_stats update is discarded."""
+
+    def __init__(self, features: int, *, momentum: float = 0.99, eps: float = 1e-5,
+                 device=None):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.ones(features, device=device))
+        self.bias = nn.Parameter(torch.zeros(features, device=device))
+        self.register_buffer("running_mean", torch.zeros(features, device=device))
+        self.register_buffer("running_var", torch.ones(features, device=device))
+        self.update_stats = True
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            xf = x.float()
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp_min(xf.square().mean(dim=(0, 2, 3)) - mean.square(), 0.0)
+            if self.update_stats:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                    self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
+
+
+@contextlib.contextmanager
+def frozen_batch_stats(module: nn.Module):
+    """Inside, train-mode calls of `module`'s BatchNorm layers normalize with
+    their batch's statistics but do not move the running ones."""
+    layers = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    before = [m.update_stats for m in layers]
+    for m in layers:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m, flag in zip(layers, before):
+            m.update_stats = flag
+
+
+@torch.no_grad()
+def init_layers(module: nn.Module, generator: torch.Generator) -> None:
+    """Every conv / linear layer of `module` drawn from `generator` as the
+    JAX package draws its counterpart, by the layer's `init_kind`:
+
+      'torch'   (the default) PyTorch's own init, U(+-1/sqrt(fan_in)) on
+                weight and bias: the JAX package's `Conv2d` / `Dense`
+      'lecun'   flax's default for a bare nn.Conv / nn.ConvTranspose: a
+                normal truncated at 2 sigma, std sqrt(1/fan_in) / 0.8796
+                (the truncated law's std), zero bias
+      'kaiming' a normal of variance 2/fan_in, zero bias (`Unet2D`)
+
+    fan_in counts the kernel's window times its input channels, for a
+    transposed conv too. BatchNorm: scale one (init_kind 'normal': drawn
+    from N(1, 0.02), `Unet2D`'s), bias zero, running mean 0 and variance 1.
+    Parameters must lie on the generator's device."""
+    for m in module.modules():
+        kind = getattr(m, "init_kind", "torch")
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            w = m.weight
+            fan_in = w.shape[0] * w[0, 0].numel() if isinstance(m, nn.ConvTranspose2d) \
+                else w[0].numel()
+            if kind == "torch":
+                bound = 1.0 / math.sqrt(fan_in)
+                w.uniform_(-bound, bound, generator=generator)
+                if m.bias is not None:
+                    m.bias.uniform_(-bound, bound, generator=generator)
+                continue
+            if kind == "lecun":
+                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+                nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+            elif kind == "kaiming":
+                nn.init.normal_(w, 0.0, math.sqrt(2.0 / fan_in), generator=generator)
+            else:
+                raise ValueError(f"unknown init_kind {kind!r}")
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, BatchNorm):
+            if kind == "normal":
+                m.weight.normal_(1.0, 0.02, generator=generator)
+            else:
+                m.weight.fill_(1.0)
+            m.bias.zero_()
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)

@@ -66,8 +66,8 @@ from hicdiff_tpu_torch.models.common import (
     init_torch_default,
 )
 
-__all__ = ["HicedrnDiff", "HicedrnLinearAttention", "HicedrnResBlock", "SR3ResBlock",
-           "linear_attention"]
+__all__ = ["HicedrnDiff", "HicedrnGenerator", "HicedrnLinearAttention", "HicedrnResBlock",
+           "SR3ResBlock", "linear_attention"]
 
 N_FEAT = 256
 
@@ -265,3 +265,47 @@ class HicedrnDiff(nn.Module):
                 h = self.attn[i // 2](h, cdt)
         h = conv_nhwc(h, self.body_tail.weight, self.body_tail.bias, cdt) + r
         return conv_nhwc(h, self.tail.weight, self.tail.bias, cdt).float()
+
+
+class _GeneratorBlock(nn.Module):
+    """relu(conv(x)) -> conv (the same conv) -> x0.1 + x."""
+
+    def __init__(self, features: int, device=None):
+        super().__init__()
+        self.res_conv = nn.Conv2d(features, features, 3, padding=1, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.res_conv(F.relu(self.res_conv(x))) * 0.1 + x
+
+
+class HicedrnGenerator(nn.Module):
+    """The plain (non-diffusion) hicedrn Generator, the 'hiedsr' baseline
+    (port of `HicedrnGenerator`, hicdiff_tpu/models/hicedrn.py:195): head
+    conv -> `number_blocks` x (conv - relu - the same conv, x0.1 + x) ->
+    body tail conv -> global residual -> tail conv. No timestep and no
+    scale/shift, and a relu between the convs, so the blocks are plain
+    `F.conv2d` (the JAX package's are plain `nn.Conv` too).
+
+    NHWC in and out, fp32. Parameters are named as the reference's
+    schicedrn_gan.py Generator names them: `head`, `body.{i}.res_conv`,
+    `body.{number_blocks}` (the body tail), `tail`; PyTorch's default init
+    drawn on the CPU from `generator`, then moved to `device`."""
+
+    def __init__(self, *, channels: int = 1, number_blocks: int = 32, device,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        meta = torch.device("meta")
+        self.head = nn.Conv2d(channels, N_FEAT, 3, padding=1, device=meta)
+        self.body = nn.ModuleList([_GeneratorBlock(N_FEAT, meta) for _ in range(number_blocks)]
+                                  + [nn.Conv2d(N_FEAT, N_FEAT, 3, padding=1, device=meta)])
+        self.tail = nn.Conv2d(N_FEAT, channels, 3, padding=1, device=meta)
+        self.to_empty(device="cpu")
+        init_torch_default(self, generator if generator is not None else torch.Generator())
+        self.to(device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.head(x.permute(0, 3, 1, 2))
+        r = h
+        for block in self.body:
+            h = block(h)
+        return self.tail(h + r).permute(0, 2, 3, 1).contiguous()

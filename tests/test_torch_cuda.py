@@ -647,3 +647,54 @@ def test_unet_on_card_matches_cpu(cuda_device, dtype, tol):
         want = on_cpu(x, level, cond)
     assert got.dtype == torch.float32
     assert (got - want).abs().max().item() <= tol * max(1.0, want.abs().max().item())
+
+
+@pytest.mark.parametrize("name", ["hiedsr", "hicarn", "deephic", "hicsr", "unet", "hicplus",
+                                  "DeepHiCDiscriminator", "HiCSRDiscriminator",
+                                  "HiedsrDiscriminator", "DAE", "VGGFeatures"])
+def test_baseline_on_card_matches_cpu(cuda_device, name):
+    """Each baseline at its registry size is plain PyTorch on both sides:
+    the card's eval forward against the CPU's on the same weights, batch 2,
+    within 1e-3 of the CPU's largest value (TF32 off)."""
+    from hicdiff_tpu_torch.metrics.losses import VGGFeatures
+    from hicdiff_tpu_torch.models import baselines
+    from hicdiff_tpu_torch.models.zoo import BASELINES
+
+    ctor, needs_pad = ((BASELINES[name][0], BASELINES[name][1]) if name in BASELINES
+                       else (VGGFeatures if name == "VGGFeatures" else getattr(baselines, name),
+                             False))
+    models = [ctor(device=d, generator=torch.Generator().manual_seed(0))
+              for d in (cuda_device, "cpu")]
+    size = 76 if needs_pad else 64
+    x = torch.rand(2, size, size, 1, generator=torch.Generator().manual_seed(1)) * 2 - 1
+    with torch.no_grad():
+        got, want = models[0](x.to(cuda_device)).cpu(), models[1](x)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 1e-3 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("name", ["deephic", "hicplus"])
+def test_baseline_step_on_card_matches_cpu(cuda_device, name):
+    """One pretrain_baselines_torch.l2_step on the card and on the CPU from
+    the same weights and wrap-padded batch: the loss within 1e-4 relative,
+    the BatchNorm running statistics within 1e-5 of their largest value."""
+    import pretrain_baselines_torch as pt
+    from hicdiff_tpu_torch.models.zoo import BASELINES
+
+    g = torch.Generator().manual_seed(3)
+    x = (torch.rand(3, 64, 64, 1, generator=g) * 2 - 1).numpy()
+    (x, y), w = pt.wrap_pad((x, np.clip(x * 0.9, -1, 1)), 4)
+    prep, prep_target = pt.prep_fns(name)
+    out = []
+    for dev in (cuda_device, "cpu"):
+        model = BASELINES[name][0](device=dev, generator=torch.Generator().manual_seed(0))
+        xs, ys, ws = (torch.from_numpy(a).to(dev) for a in (x, y, w))
+        loss = pt.l2_step(model, pt.adam(model.parameters(), 1e-4), prep(xs), prep_target(ys),
+                          ws, pt.HAS_BN[name])
+        out.append((loss.item(), {k: v.cpu() for k, v in model.state_dict().items()}))
+    (loss_card, sd_card), (loss_cpu, sd_cpu) = out
+    assert abs(loss_card - loss_cpu) <= 1e-4 * abs(loss_cpu)
+    for k in sd_cpu:
+        if k.endswith(("running_mean", "running_var")):
+            bar = 1e-5 * sd_cpu[k].abs().max().item()
+            assert (sd_card[k] - sd_cpu[k]).abs().max().item() <= bar, k

@@ -24,11 +24,13 @@ def test_port_imports_without_jax():
         " 'hicdiff_tpu_torch.')]\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        "import chip_smoke, inference_torch, pretrain_torch, serve_torch, train_torch\n"
+        "import chip_smoke, inference_torch, pretrain_baselines_torch, pretrain_torch\n"
+        "import sample.stard_metric_normal_torch, serve_torch, train_torch\n"
+        "import tools.torch_convert_checkpoint, tools.torch_export_checkpoint\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
-        " ('jax', 'jaxlib', 'flax', 'hicdiff_tpu', 'h5py', 'msgpack', 'sklearn'))\n"
+        " ('jax', 'jaxlib', 'flax', 'optax', 'hicdiff_tpu', 'h5py', 'msgpack', 'sklearn'))\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 34, names\n"
+        "assert len(names) >= 36, names\n"
         "print(len(names))\n"
     )
     proc = subprocess.run(
