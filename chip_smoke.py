@@ -88,8 +88,16 @@ the wgrad and the channel sums within 1e-3 of their largest value), and
 times each beside its bf16 bound and library call; the bf16 wgrad alone
 also where its thread-block clusters differ (C = 128 and 384, a ragged W,
 batch 64: within 1e-3, bit-equal twice), timed at batch 64 beside cuDNN's.
-Phase `conv_modes_bf16` times the bf16 conv's epilogue modes 1-5 alone at
-batch 8, 64 and 66, for what the second-tile modes 3 and 4 cost. `train_bf16` and
+The bf16 training forward (mode 3, then 2) is timed the same way beside its
+bound and cuDNN's pair that also keeps z. Phase `conv_modes_bf16` holds the
+persistent kernel's modes 3 and 4, through the C entry, to their plain
+versions at the bf16 bar at MODES_34_SHAPES (main, ragged, training
+batches, C = 128, 384, 512, batch 1, tile counts no multiple of the SM
+count), each bit-equal over two calls, then times modes 1-5 alone at batch
+8, 64 and 66 with each one's share of one conv's bound, and modes 3 and 4
+beside cuDNN's time for the same function. The train phases check by the
+wrappers' per-mode counts that each step launches modes 3 and 4 once a
+block. `train_bf16` and
 `train_uncond_bf16` run train_torch.py --bf16 for an epoch (launch counters,
 step split, peak memory, three profiled steps); `train_step_vs_plain` and
 `zoo_step_vs_plain` in bf16 hold two steps of base, sr3 and att card against
@@ -204,7 +212,7 @@ BWD_TOL = 1e-4  # backward kernels vs the plain twin, of each gradient's largest
 # cores, fp32 outside them, and the HBM3 rate
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, "tf32": 495e12}
 HBM_BYTES_PER_S = 3.35e12
-CONV_KERNELS = ("conv3x3_bf16_kernel", "conv3x3_3xtf32_kernel")
+CONV_KERNELS = ("conv3x3_bf16_kernel", "conv3x3_bf16_persistent_kernel", "conv3x3_3xtf32_kernel")
 
 
 def phase(name, t0, **fields):
@@ -268,6 +276,14 @@ def library_resblock(x, w_oihw, bias, scale, shift, residual=None):
     out = F.conv2d(h, w_oihw, bias, padding=1) * 0.1
     out = out + xc if residual is None else out.float() + residual.permute(0, 3, 1, 2)
     return out.permute(0, 2, 3, 1)
+
+
+def library_train_forward(x, w_oihw, bias, scale, shift):
+    """The training forward's yardstick: library_resblock that also returns
+    z = conv(x) + bias and h. Timed here only; the port never calls it."""
+    z, h = library_mode3(x, w_oihw, bias, scale, shift)
+    out = F.conv2d(h.permute(0, 3, 1, 2), w_oihw, bias, padding=1) * 0.1 + x.permute(0, 3, 1, 2)
+    return out.permute(0, 2, 3, 1), z, h
 
 
 def device_ops(prof):
@@ -1003,24 +1019,112 @@ def wgrad_bf16_shapes(dev, card, t0, resblock_wgrad, resblock_wgrad_reference):
     return dict(checks_by_shape=checks, train_batch=train)
 
 
-def conv_modes_bf16(dev, card):
-    """Why the bf16 conv's second-tile modes lag at the training batch: each
-    epilogue mode of conv3x3_bf16_kernel timed alone by CUDA events through
-    the C entry (not counted: these are no main-path launches) at batch 8,
-    64 and 66. Mode 1 against mode 3 is the same conv and epilogue, less
-    the store of z as a second tile; mode 5 against mode 4 the same conv
-    with a residual read and one store, against z read by TMA, the silu
-    derivative and the stores of dz and du. Batch 66 fills whole waves of
-    132 SMs (2112 tiles of 2 rows x 64 pixels x 256 channels, one 212 KB
-    block an SM) where 64 leaves the last of 16 waves half empty. Beside each mode, the bytes it
-    moves to and from device memory over 3.35 TB/s."""
+# the shapes at which the bf16 conv's modes 3 and 4 are held to their plain
+# versions through the C entry: the main, both ragged, the training batches,
+# half-empty channel tiles (C = 128, 384, 512), batch 1 (32 tiles, fewer than
+# SMs) and tile counts that are no multiple of the SM count (160, 384)
+MODES_34_SHAPES = (RESBLOCK_SHAPE, *RAGGED_SHAPES, *TRAIN_RESBLOCK_SHAPES, (2, 10, 13, 128),
+                   (1, 5, 70, 384), (1, 3, 9, 512), (1, 64, 64, 256), (5, 64, 64, 256),
+                   (6, 64, 64, 512))
+
+
+def conv_mode(mode, src, wgt, bias, scale, shift, res, out, aux):
+    """One launch of the bf16 conv in epilogue `mode` through its C entry
+    (hicdiff_conv3x3_bf16), uncounted: no main-path launch."""
     from hicdiff_tpu_torch.kernels import _build
-    from hicdiff_tpu_torch.kernels.resblock import _conv3x3, prepare_weight, transpose_kernel
+    from hicdiff_tpu_torch.kernels.resblock import _conv3x3
+
+    lib, fn = _conv3x3(torch.bfloat16)
+    _build.check_status(lib, fn(
+        src.data_ptr(), wgt.data_ptr(), bias.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+        scale.stride(0), None if res is None else res.data_ptr(), out.data_ptr(),
+        None if aux is None else aux.data_ptr(), *src.shape, mode,
+        torch.cuda.current_stream().cuda_stream), "conv3x3")
+
+
+def library_mode3(x, w_oihw, bias, scale, shift):
+    """Mode 3's yardstick: the cuDNN bf16 conv on a channels_last view and
+    the eager epilogue, z and h stored. Timed here only."""
+    z = F.conv2d(x.permute(0, 3, 1, 2), w_oihw, bias, padding=1)
+    h = F.silu(z * (scale[:, :, None, None] + 1) + shift[:, :, None, None])
+    return z.permute(0, 2, 3, 1), h.permute(0, 2, 3, 1)
+
+
+def library_mode4(gy, z, w_oihw, scale, shift):
+    """Mode 4's yardstick: the cuDNN bf16 transposed conv and the eager
+    du/dz epilogue (library_dgrad's first half). Timed here only."""
+    sc, sh = scale[:, :, None, None], shift[:, :, None, None]
+    u = z.permute(0, 3, 1, 2) * (sc + 1) + sh
+    s = torch.sigmoid(u)
+    du = F.conv_transpose2d(gy.permute(0, 3, 1, 2), w_oihw, padding=1) * 0.1 * (
+        s * (1 + u * (1 - s)))
+    return (du * (sc + 1)).permute(0, 2, 3, 1), du.permute(0, 2, 3, 1)
+
+
+def modes_34_checks(dev):
+    """Modes 3 and 4 through the C entry against their plain versions on the
+    same bf16 inputs at MODES_34_SHAPES, at the bf16 bar; each twice, bit
+    for bit."""
+    from hicdiff_tpu_torch.kernels.resblock import (
+        _conv_f32,
+        _dgrad_reference,
+        prepare_weight,
+        transpose_kernel,
+    )
+
+    bf = torch.bfloat16
+    gd = torch.Generator(device=dev).manual_seed(13)
+    checks = {}
+    for shape in MODES_34_SHAPES:
+        b, _, _, c = shape
+        x, gy, z = ((torch.randn(shape, generator=gd, device=dev) * 0.5).to(bf) for _ in range(3))
+        kernel = (torch.randn(3, 3, c, c, generator=gd, device=dev) / (9 * c) ** 0.5).to(bf)
+        bias = (torch.randn(c, generator=gd, device=dev) * 0.05).to(bf)
+        scale, shift = (torch.randn(b, 2 * c, generator=gd, device=dev) * 0.5).to(bf).chunk(2, -1)
+        kernel_t = transpose_kernel(kernel)
+        wp, wt = prepare_weight(kernel), prepare_weight(kernel_t)
+        runs = []
+        for _ in range(2):
+            h3, z3, dz4, du4 = (torch.empty(shape, device=dev, dtype=bf) for _ in range(4))
+            conv_mode(3, x, wp, bias, scale, shift, None, h3, z3)
+            conv_mode(4, gy, wt, scale, scale, shift, z, dz4, du4)
+            runs.append((h3, z3, dz4, du4))
+        v = _conv_f32(x.float(), kernel.float(), bias.float())
+        h_want = F.silu(v * (scale.float()[:, None, None] + 1) + shift.float()[:, None, None])
+        _, dz_want, du_want = _dgrad_reference(gy, z, scale, shift, kernel_t)
+        torch.cuda.synchronize()
+        row = {n: bar_share(got, want, "bf16") for n, got, want in
+               zip(("h", "z", "dz", "du"), runs[0], (h_want.to(bf), v.to(bf), dz_want, du_want))}
+        for n, (err, share) in row.items():
+            check(share <= 1, f"bf16 conv mode {3 if n in 'hz' else 4} {shape} {n}: "
+                              f"max-abs {err}, {share} of its bar")
+        again = all(torch.equal(a, b_) for a, b_ in zip(*runs))
+        check(again, f"bf16 conv modes 3 and 4 {shape}: two calls differ")
+        checks[str(shape)] = dict(max_abs_err_and_share_of_bar=row, bit_equal_repeat=again)
+        del x, gy, z, kernel, bias, scale, shift, kernel_t, wp, wt, runs, v, h_want
+    return checks
+
+
+def conv_modes_bf16(dev, card):
+    """The bf16 conv's epilogue modes through the C entry (not counted: no
+    main-path launches). First modes 3 and 4, the persistent kernel,
+    against their plain versions at MODES_34_SHAPES (modes_34_checks). Then
+    each of modes 1-5 timed alone by CUDA events at batch 8, 64 and 66, with
+    its share of one conv's bound (2 B H W C 9C FLOPs at 989 TFLOP/s), and
+    modes 3 and 4 beside cuDNN's time for the same function (library_mode3,
+    library_mode4), which the port never calls. Mode 1 against mode 3 is
+    the same conv and epilogue, less the store of z; mode 5 against mode 4
+    the same conv with a residual read and one store, against z read by
+    TMA, the silu derivative and the stores of dz and du. Batch 66 fills
+    whole waves of 132 SMs (2112 tiles of 2 rows x 64 pixels x 256
+    channels, one 212 KB block an SM) where 64 leaves the last of 16 waves
+    half empty. Beside each mode, the bytes it moves to and from device
+    memory over 3.35 TB/s."""
+    from hicdiff_tpu_torch.kernels.resblock import prepare_weight, transpose_kernel
 
     t0 = time.time()
+    checks = modes_34_checks(dev)
     bf = torch.bfloat16
-    lib, fn = _conv3x3(bf)
-    stream = torch.cuda.current_stream().cuda_stream
     gd = torch.Generator(device=dev).manual_seed(12)
     rows = {}
     for b in (8, TRAIN_BATCH, 66):
@@ -1029,34 +1133,36 @@ def conv_modes_bf16(dev, card):
                                resblock_inputs(shape, torch.Generator().manual_seed(b)))
         scale, shift = te.chunk(2, dim=-1)
         wp, wt = prepare_weight(kernel), prepare_weight(transpose_kernel(kernel))
+        w_lib = kernel.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         gy, z, hid, dz, out, du = (torch.randn(shape, generator=gd, device=dev).to(bf)
                                    for _ in range(6))
+        bound, _ = bound_ms(2 * x.numel() * 9 * shape[-1], 0, bf)
         # mode: (src, weight, bias, res, out, aux, tensors moved)
         launches = {1: (x, wp, bias, None, hid, None, 2), 3: (x, wp, bias, None, hid, z, 3),
                     2: (hid, wp, bias, x, out, None, 3), 4: (gy, wt, scale, z, dz, du, 4),
                     5: (dz, wt, scale, gy, out, None, 3)}
-        row = {}
+        library = {3: lambda: library_mode3(x, w_lib, bias, scale, shift),
+                   4: lambda: library_mode4(gy, z, w_lib, scale, shift)}
+        row = {"bound_ms": bound}
         for mode, (src, wgt, bia, res, dst, aux, moved) in launches.items():
-            def launch(src=src, wgt=wgt, bia=bia, res=res, dst=dst, aux=aux, mode=mode):
-                _build.check_status(lib, fn(
-                    src.data_ptr(), wgt.data_ptr(), bia.data_ptr(), scale.data_ptr(),
-                    shift.data_ptr(), scale.stride(0), None if res is None else res.data_ptr(),
-                    dst.data_ptr(), None if aux is None else aux.data_ptr(), *shape, mode,
-                    stream), "conv3x3")
-            ms = cuda_ms(launch, iters=10)
-            row[f"mode{mode}"] = dict(ms=ms, ms_per_image=ms / b,
+            ms = cuda_ms(lambda: conv_mode(mode, src, wgt, bia, scale, shift, res, dst, aux),
+                         iters=10)
+            row[f"mode{mode}"] = dict(ms=ms, ms_per_image=ms / b, share_of_bound=bound / ms,
                                       bytes_ms=moved * x.numel() * 2 / HBM_BYTES_PER_S * 1e3)
+            if mode in library:
+                row[f"mode{mode}"]["library_ms"] = cuda_ms(library[mode], iters=10)
         row["mode3_minus_mode1_ms"] = row["mode3"]["ms"] - row["mode1"]["ms"]
         row["mode4_minus_mode5_ms"] = row["mode4"]["ms"] - row["mode5"]["ms"]
         rows[b] = row
-        del x, kernel, bias, te, scale, shift, wp, wt, gy, z, hid, dz, out, du
+        del x, kernel, bias, te, scale, shift, wp, wt, w_lib, gy, z, hid, dz, out, du
     per_image = {f"mode{m}": rows[TRAIN_BATCH][f"mode{m}"]["ms_per_image"]
                  / rows[8][f"mode{m}"]["ms_per_image"] for m in (1, 2, 3, 4, 5)}
     waves = {f"mode{m}": rows[TRAIN_BATCH][f"mode{m}"]["ms"]
              / (rows[66][f"mode{m}"]["ms"] * TRAIN_BATCH / 66) for m in (1, 2, 3, 4, 5)}
     torch.cuda.synchronize()
-    phase("conv_modes_bf16", t0, shape_hwc=(64, 64, 256), by_batch=rows,
-          per_image_ratio_64_to_8=per_image, ratio_64_to_66_scaled=waves, card=card)
+    phase("conv_modes_bf16", t0, shape_hwc=(64, 64, 256), tol_bf16_of_max1_largest=BF16_TOL,
+          modes_34_checks=checks, by_batch=rows, per_image_ratio_64_to_8=per_image,
+          ratio_64_to_66_scaled=waves, card=card)
     return rows
 
 
@@ -1169,6 +1275,21 @@ def resblock_backward_bf16(dev, card, g):
     fwd_ms = cuda_ms(lambda: _fused_resblock_cuda(x, wp, bias, scale, shift, saving=True),
                      iters=10)
     inf_ms = cuda_ms(lambda: fused_resblock_prepared(x, wp, bias, scale, shift), iters=10)
+    y_err = bar_share(y, fused_resblock_reference(x, kernel, bias, scale, shift), "bf16")
+    check(y_err[1] <= 1, f"bf16 training forward y: max-abs {y_err[0]}, {y_err[1]} of its bar")
+
+    def train_forward_plain():  # y, z and h as the plain versions compute them
+        v = _conv_f32(x.float(), kernel.float(), bias.float())
+        return fused_resblock_reference(x, kernel, bias, scale, shift), v.to(bf), F.silu(
+            v * (scale.float()[:, None, None] + 1) + shift.float()[:, None, None]).to(bf)
+
+    # the training forward: mode 3 (z and h), then mode 2; x read, z, h, y written
+    measure("fused_resblock_train",
+            lambda: _fused_resblock_cuda(x, wp, bias, scale, shift, saving=True),
+            train_forward_plain, lambda: library_train_forward(x, w_lib, bias, scale, shift),
+            flops, act * 4 + wp.numel() * 2 + (c + 2 * b * c) * 2,
+            max(e for e, _ in (*mode3.values(), y_err)),
+            errors={**mode3, "y": y_err}, modes=[3, 2], forward_inference_ms=inf_ms)
     measure("fused_resblock_dgrad", lambda: resblock_dgrad(gy, z, scale, shift, wt),
             lambda: _dgrad_reference(gy, z, scale, shift, kernel_t),
             lambda: library_dgrad(gy, z, w_lib, scale, shift), flops, act * 5 + params,
@@ -1256,6 +1377,8 @@ def train(dev, card, condition=False, bf16=False):
         torch.cuda.reset_peak_memory_stats()
         for counter in counters.values():
             counter.launches = 0
+        for counter in (counters["fused_resblock"], counters["fused_resblock_dgrad"]):
+            counter.mode_launches.clear()
         tr = time.time()
         best = run.fit_model()
         torch.cuda.synchronize()
@@ -1266,6 +1389,13 @@ def train(dev, card, condition=False, bf16=False):
                 "fused_resblock_dgrad": steps * BLOCKS * 2,
                 "resblock_wgrad": steps * BLOCKS, "resblock_channel_sums": steps * BLOCKS}
         check(launches == want, f"{name} launches {launches} != {want}")
+        # each step: BLOCKS training forwards (mode 3, then 2) and BLOCKS of
+        # conv #2's dgrad (mode 4, then 5)
+        modes_34 = (counters["fused_resblock"].mode_launches[3],
+                    counters["fused_resblock_dgrad"].mode_launches[4])
+        check(modes_34 == (steps * BLOCKS, steps * BLOCKS),
+              f"{name}: modes 3 and 4 launched {modes_34} times in {steps} steps")
+        launches["fused_resblock_train"] = 2 * modes_34[0]
         times = run.trainer.step_times_ms()
         check(len(times) == steps, f"{len(times)} timed steps of {steps}")
         record = run.trainer.history[0]
@@ -1285,7 +1415,9 @@ def train(dev, card, condition=False, bf16=False):
               step_ms=[sum(t) for t in times], forward_ms=[t[0] for t in times],
               backward_ms=[t[1] for t in times], update_ms=[t[2] for t in times],
               full_step_ms_mean=float(np.mean([sum(t) for t in full])),
-              peak_memory_gb=peak_gb, launches=launches, checkpoint_mb=ckpt_mb,
+              peak_memory_gb=peak_gb, launches=launches,
+              mode_launches_per_step={"mode3": modes_34[0] / steps, "mode4": modes_34[1] / steps},
+              checkpoint_mb=ckpt_mb,
               cut="data scale only: 14 train chromosomes of 320 bins (hg19's have "
                   "1,200-6,200 at 40 kb); full width and depth", card=card)
         run.trainer.time_steps = False
@@ -2066,6 +2198,7 @@ def pretrain_zoo(dev, card, bf16=False):
                 counter.launches = 0
             for counter in (counters["fused_resblock"], counters["fused_resblock_dgrad"]):
                 counter.stream_launches = 0
+                counter.mode_launches.clear()
             trainer = pretrain_torch.main([
                 "--model", name, "--engine", engine, "--data", data, "-e", "1",
                 "-b", str(TRAIN_BATCH), "-s", str(SIGMA), "--root", root, "--ckpt-throttle", "0",
@@ -2094,6 +2227,7 @@ def pretrain_zoo(dev, card, bf16=False):
             run = f"{name}_{engine}_{data}" + ("_bf16" if bf16 else "")
             check(steps == 4, f"pretrain_zoo {run}: {steps} steps")
             check(launches == want, f"pretrain_zoo {run} launches {launches} != {want}")
+            launches["fused_resblock_train"] = 2 * counters["fused_resblock"].mode_launches[3]
             record = trainer.history[0]
             check(np.isfinite([record["train/loss"], record["valid/loss"]]).all(),
                   f"pretrain_zoo {run} losses {record}")
@@ -3084,7 +3218,7 @@ def main():
          "launches_cli_zoo": {k: v["step_launches"] for k, v in zoo_cli.items()},
          "launches_stard_metric": {k: v["step_launches"] for k, v in scripts.items()}},
     ]
-    # the backward: port-only kernels, no Pallas kernel to replace
+    # the backward (and the training forward): port-only kernels, no Pallas kernel to replace
     sources = {"fused_resblock_dgrad": "hicdiff_tpu_torch/csrc/resblock.cu",
                "resblock_wgrad": "hicdiff_tpu_torch/csrc/resblock_bwd.cu",
                "resblock_channel_sums": "hicdiff_tpu_torch/csrc/resblock_bwd.cu"}
@@ -3107,6 +3241,9 @@ def main():
                  "replaces": "none: the autodiff of hicdiff_tpu/models/hicedrn.py:55-64 "
                              "(the JAX package has no Pallas backward)",
                  "dtype": "bfloat16"}
+        if name == "fused_resblock_train":
+            entry["replaces"] = ("hicdiff_tpu/kernels/resblock.py:101, keeping z and h (the "
+                                 "JAX package trains through hicdiff_tpu/models/hicedrn.py:55-64)")
         if stream:
             entry["launches"] = zoo_pre_bf16[att][name]
             if base == "fused_resblock":

@@ -48,10 +48,11 @@
 //   * Both epilogues (bias, scale/shift, SiLU, x0.1, residual, cast) run on
 //     the fp32 accumulators, the same operations in the same order as the
 //     plain version, before the single store of the output tile.
-// bf16 (conv3x3_bf16_kernel): k16 steps of bf16 products, 3 stages of 48 KB;
-//   the epilogue writes a swizzled shared tile (mode 2 first reads the
-//   residual there, loaded by TMA during the main loop) and leaves by TMA
-//   stores, which write only the in-bounds part of a box.
+// bf16 (conv3x3_bf16_kernel, modes 1, 2, 5, 6, 7, one block a tile): k16
+//   steps of bf16 products, 3 stages of 48 KB; the epilogue writes a
+//   swizzled shared tile (mode 2 first reads the residual there, loaded by
+//   TMA during the main loop) and leaves by TMA stores, which write only the
+//   in-bounds part of a box. Modes 3 and 4 run the persistent form below.
 // fp32 (conv3x3_3xtf32_kernel): one TF32 product keeps ~3 decimal digits,
 //   short of the 1e-4 the port holds fp32 to. Three products do:
 //     a * b ~= a_lo * b_hi + a_hi * b_lo + a_hi * b_hi,
@@ -91,10 +92,60 @@
 //           2 reads it, scale 1, no bias.
 // In bf16 every tensor the modes read or write is bf16 (x, z, h, g, dz, du,
 // dx: the dtype flow of JAX's cotangents) and every epilogue operation runs
-// on the fp32 accumulators, in the order of the plain twin. Mode 3 stores
-// z and mode 4 du as a second swizzled tile, which reuses the ring once both
-// consumer warpgroups are past their main loops; mode 4 reads z where mode 2
-// reads its residual, and mode 5 is mode 2 without bias and x0.1.
+// on the fp32 accumulators, in the order of the plain twin; mode 4 reads z
+// where mode 2 reads its residual, and mode 5 is mode 2 without bias and x0.1.
+//
+// bf16 modes 3 and 4 (conv3x3_bf16_persistent_kernel). What bounds them is
+// what bounds every bf16 mode: a 128-pixel x 256-channel tile takes 48 KB
+// from L2 per k-block for 4.2 MFLOP (85 FLOP a byte), so at the 0.52 ms of
+// mode 2 at batch 64 each SM takes in ~55 GB/s and the tensor cores wait on
+// the loads. On top of that, a one-tile-a-block grid with 212 KB blocks
+// (one an SM) pays each tile's pipeline fill, its epilogue and its store
+// waits with no load in flight, and modes 3 and 4 have the longest
+// epilogues: two 64 KB tiles out, and a sigmoid per element. What this
+// kernel does (each choice timed against its alternative by
+// tools/conv_bf16_variants.py):
+//   * Persistent: min(tiles, SMs) blocks (the device's SM count), each
+//     walking tiles blockIdx.x + k gridDim.x. The producer runs straight on
+//     into the next tile's k-blocks, its full/empty phases counted over all
+//     the block's k-blocks, so while the consumers run an epilogue the ring
+//     fills (3 stages, ~2.7 us of loads at that intake) and the next main
+//     loop starts on landed stages. The consumers release a tile's last
+//     stage after wgmma_wait<0>.
+//   * The second tile leaves through the output tile, not the ring, and
+//     each warpgroup runs its epilogue alone, with its own 64-pixel row of
+//     the output tile, its own parameter slots and its own named barrier:
+//     first tile (mode 3 z, mode 4 dz with du kept in the accumulators),
+//     TMA store, the leader's wait until that store has READ the row
+//     (cp.async.bulk.wait_group.read), a warpgroup barrier, second tile (h
+//     or du), TMA store. Mode 3 computes h while its z store reads. Staging
+//     from shared memory keeps the stores to 128-byte lines; stored from
+//     the registers, each warp's store touches 8 lines for 128 bytes, and
+//     modes 3 and 4 ran 19 and 9 % slower.
+//   * Store waits: the second store is waited for only before the row is
+//     written again, one tile later: mode 3 at the start of the next
+//     epilogue; mode 4 before it loads the next z into the row, at k-block
+//     2 of the next main loop (the leader waits, then issues the z boxes on
+//     res_ready[row], which the epilogue waits on with the phase flipping
+//     each tile). So z never lands on data a store has not read, and the
+//     epilogue's first read of z follows both. Every generic write to the
+//     row is fenced to the async proxy and met at the warpgroup barrier
+//     before the leader stores it.
+//   * The sigmoid of mode 3's SiLU and of mode 4's silu' is one ex2.approx
+//     (__expf) and one rcp.approx (__fdividef), in the plain twin's order
+//     otherwise. __expf is within 2 + 1.173 |x| ulp, __fdividef within 2:
+//     at |u| <= 16 the sigmoid is within ~2.6e-6 relative of expf's, under
+//     a thousandth of a bf16 ulp, so an output moves at most one bf16 ulp and
+//     only next to a rounding boundary (the bar is 0.016 of max(1, the
+//     largest value)).
+//   * Shared memory: the 3 x 48 KB ring, the 64 KB output tile, 6 KB of
+//     parameters (two warpgroups' bias, scale + 1, shift) and the barriers:
+//     215 KB of 227. A fourth stage (48 KB) does not fit beside the output
+//     tile.
+//   * Registers: 384 threads, a whole producer warpgroup, and setmaxnreg
+//     (232 a consumer thread, 40 a producer one). At 288 threads ptxas
+//     grants 168 a thread, and mode 4, which keeps du in the accumulators,
+//     spills 232 bytes and runs 17 % slower.
 // The bf16 attention variant's residual stream is fp32 (its post-norm's fp32
 // scale promotes it), so its blocks read the stream cast to bf16 and take
 // two modes of the bf16 kernel whose epilogues read and write fp32 straight
@@ -108,6 +159,8 @@
 
 #include <cuda_bf16.h>
 #include <stdio.h>
+
+#include <algorithm>
 
 #include "hopper.cuh"
 
@@ -153,6 +206,19 @@ __device__ __forceinline__ float dgrad2_du(float acc, float z, float scale, floa
   return (acc * 0.1f) * (s * (1.0f + u * (1.0f - s)));
 }
 
+// The persistent kernel's SiLU and mode 4 (see the note at the top): the same
+// operations in the same order, with 1 / (1 + e^-v) as one ex2.approx
+// (__expf) and one rcp.approx (__fdividef) in place of expf and an IEEE
+// divide. `scale1` is scale + 1, added once per channel as above.
+__device__ __forceinline__ float silu_fast(float v) {
+  return __fdividef(v, 1.0f + __expf(-v));
+}
+__device__ __forceinline__ float dgrad2_du_fast(float acc, float z, float scale1, float shift) {
+  const float u = z * scale1 + shift;
+  const float s = __fdividef(1.0f, 1.0f + __expf(-u));
+  return (acc * 0.1f) * (s * (1.0f + u * (1.0f - s)));
+}
+
 // The tile both kernels share (see the note at the top); the number of
 // output channels per tile (wgmma N) is each kernel's own.
 constexpr int kTileW = 64;   // output columns per tile = wgmma M of one warpgroup
@@ -177,6 +243,18 @@ constexpr int kEpi = kStages * kStageBytes;           // [row][kBN / 64][64 w][6
 constexpr int kParams = kEpi + kTileH * kOutRowBytes;  // bias, scale, shift: fp32
 constexpr int kBars = kParams + 3 * kBN * 4;          // full[S], empty[S], res[rows]
 constexpr int kSmemBytes = kBars + (2 * kStages + kTileH) * 8 + 1024;  // + align slack
+// The persistent kernel of modes 3 and 4: the same ring and output tile, and
+// each consumer warpgroup's own parameters (bias, scale + 1, shift), which it
+// rewrites for every tile while the other warpgroup may still read its own.
+constexpr int kPParams = kEpi + kTileH * kOutRowBytes;     // [row][bias, scale + 1, shift][kBN]
+constexpr int kPBars = kPParams + kTileH * 3 * kBN * 4;    // full[S], empty[S], res[rows]
+constexpr int kPSmemBytes = kPBars + (2 * kStages + kTileH) * 8 + 1024;  // + align slack
+static_assert(kPSmemBytes <= 232448, "227 KB of shared memory a block");
+// Two consumer warpgroups and a whole producer warpgroup: ptxas budgets
+// registers per warpgroup (168 a thread for 288 or 384 threads), and
+// setmaxnreg moves them to the consumers, 2 x 128 x 232 + 128 x 40 of 65,536.
+constexpr int kPThreads = 32 * kConsumerWarps + 128;
+constexpr int kConsumerRegs = 232, kProducerRegs = 40;
 }  // namespace bf16cfg
 
 // ------------------------------------------------------------------ fp32 path
@@ -351,24 +429,25 @@ __device__ __forceinline__ TileCoords tile_coords(int H, int W, int bn) {
 __host__ __device__ constexpr bool reads_res_tile(int mode) {
   return mode == kModeConv2 || mode == kModeDgrad2 || mode == kModeDgrad1;
 }
-// The bf16 modes that store a second tile (z, du) from the reused ring.
+// The bf16 modes that store a second tile (z, du): the persistent kernel's.
 __host__ __device__ constexpr bool writes_aux_tile(int mode) {
   return mode == kModeConv1Z || mode == kModeDgrad2;
 }
 
+// Modes 1, 2, 5, 6 and 7: one block a tile.
 template <int MODE>
 __global__ void __launch_bounds__(kBlockThreads, 1)
-    conv3x3_bf16_kernel(__grid_constant__ const CUtensorMap map_in,   // A: x, h, g or dz, box (64,64,2,1)
+    conv3x3_bf16_kernel(__grid_constant__ const CUtensorMap map_in,   // A: x, h or dz, box (64,64,2,1)
                         __grid_constant__ const CUtensorMap map_w,    // B: (1, C, 9C), box (64,256,1)
-                        __grid_constant__ const CUtensorMap map_res,  // modes 2, 4, 5, box (64,64,1,1)
-                        __grid_constant__ const CUtensorMap map_out,  // modes 1-5, box (64,64,1,1)
-                        __grid_constant__ const CUtensorMap map_aux,  // modes 3, 4: z, du
+                        __grid_constant__ const CUtensorMap map_res,  // modes 2, 5, box (64,64,1,1)
+                        __grid_constant__ const CUtensorMap map_out,  // modes 1, 2, 5, box (64,64,1,1)
                         const __nv_bfloat16* __restrict__ bias,
                         const __nv_bfloat16* __restrict__ scale,
                         const __nv_bfloat16* __restrict__ shift, long long ss_stride,
                         const float* __restrict__ res_f32,  // modes 6, 7: the fp32 stream, g
                         float* __restrict__ out_f32,        // modes 6, 7
                         int H, int W, int C) {
+  static_assert(!writes_aux_tile(MODE), "modes 3 and 4 run conv3x3_bf16_persistent_kernel");
   using namespace bf16cfg;
   constexpr int BN = kBN;
   constexpr int S = kStages;
@@ -463,11 +542,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
     } else {
       // Each value goes, as bf16, into the (64 w, 64 c) box j / 8 of this
       // row at 128-byte line w, 16-byte chunk (j % 8) ^ (w % 8): TMA's
-      // 128-byte swizzle. Modes 3 and 4 write their second tile (z, du) in
-      // the same layout into the ring, which both warpgroups have finished
-      // reading once they meet here; every TMA load into it has landed.
-      if constexpr (writes_aux_tile(MODE)) asm volatile("bar.sync 3, 256;\n" ::: "memory");
-      unsigned char* aux = smem + row * kOutRowBytes;
+      // 128-byte swizzle.
       if (reads_res_tile(MODE)) mbar_wait(&res_ready[row], 0);
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
@@ -478,23 +553,13 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
           const int off = (j / 8) * kBoxBytes + w * 128 + (((j % 8) ^ r8) * 16) + q * 4;
           __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(epi + off);
           float v0 = acc[4 * j + 2 * half], v1 = acc[4 * j + 2 * half + 1];
-          if constexpr (MODE == kModeConv1 || MODE == kModeConv1Z) {
-            if constexpr (MODE == kModeConv1Z)
-              *reinterpret_cast<__nv_bfloat162*>(aux + off) =
-                  __floats2bfloat162_rn(v0 + s_bias[n], v1 + s_bias[n + 1]);
+          if constexpr (MODE == kModeConv1) {
             v0 = epilogue<kModeConv1>(v0, s_bias[n], s_scale[n], s_shift[n], 0.0f);
             v1 = epilogue<kModeConv1>(v1, s_bias[n + 1], s_scale[n + 1], s_shift[n + 1], 0.0f);
           } else if constexpr (MODE == kModeConv2) {
             const float2 r = __bfloat1622float2(*p);
             v0 = epilogue<kModeConv2>(v0, s_bias[n], 0.0f, 0.0f, r.x);
             v1 = epilogue<kModeConv2>(v1, s_bias[n + 1], 0.0f, 0.0f, r.y);
-          } else if constexpr (MODE == kModeDgrad2) {
-            const float2 z = __bfloat1622float2(*p);
-            const float du0 = dgrad2_du(v0, z.x, s_scale[n], s_shift[n]);
-            const float du1 = dgrad2_du(v1, z.y, s_scale[n + 1], s_shift[n + 1]);
-            *reinterpret_cast<__nv_bfloat162*>(aux + off) = __floats2bfloat162_rn(du0, du1);
-            v0 = du0 * (s_scale[n] + 1.0f);
-            v1 = du1 * (s_scale[n + 1] + 1.0f);
           } else {  // kModeDgrad1
             const float2 r = __bfloat1622float2(*p);
             v0 += r.x;
@@ -507,16 +572,239 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
       fence_proxy_async();
       asm volatile("bar.sync %0, 128;\n" ::"r"(1 + row) : "memory");
       if (threadIdx.x % 128 == 0) {
-        for (int j = 0; j < boxes; ++j) {
+        for (int j = 0; j < boxes; ++j)
           tma_store_4d(&map_out, epi + j * kBoxBytes, n0 + j * 64, w0, h0 + row, b);
-          if (writes_aux_tile(MODE))
-            tma_store_4d(&map_aux, aux + j * kBoxBytes, n0 + j * 64, w0, h0 + row, b);
-        }
         asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
         asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
       }
     }
   }
+}
+
+// ------------------------------------------- bf16 modes 3 and 4: persistent
+
+// Tile `tile` of the persistent grid: the spatial tiles of every image, then
+// the next channel tile, in the order of the one-tile-a-block grid.
+__device__ __forceinline__ TileCoords tile_at(int tile, int B, int H, int W, int bn) {
+  const int tiles_w = (W + kTileW - 1) / kTileW;
+  const int tiles_h = (H + kTileH - 1) / kTileH;
+  const int spatial = tiles_w * tiles_h * B;
+  const int s = tile % spatial;
+  return {(s % tiles_w) * kTileW, (s / tiles_w % tiles_h) * kTileH, s / (tiles_w * tiles_h),
+          (tile / spatial) * bn};
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// This thread's committed TMA stores have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// The 128 threads of warpgroup `row` meet (named barriers 1 and 2).
+__device__ __forceinline__ void warpgroup_sync(int row) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + row) : "memory");
+}
+
+// The k-block at which mode 4 starts the TMA load of the tile's z into the
+// output tile: by then the last tile's stores have long read it.
+constexpr int kResLoadKb = 2;
+
+// Modes 3 and 4 (see the note at the top): min(tiles, SMs) blocks, each
+// walking the tiles blockIdx.x, blockIdx.x + gridDim.x, ... with the ring's
+// barrier phases carried from tile to tile.
+template <int MODE>
+__global__ void __launch_bounds__(bf16cfg::kPThreads, 1)
+    conv3x3_bf16_persistent_kernel(__grid_constant__ const CUtensorMap map_in,   // x or g
+                                   __grid_constant__ const CUtensorMap map_w,
+                                   __grid_constant__ const CUtensorMap map_res,  // mode 4: z
+                                   __grid_constant__ const CUtensorMap map_out,  // h or dz
+                                   __grid_constant__ const CUtensorMap map_aux,  // z or du
+                                   const __nv_bfloat16* __restrict__ bias,
+                                   const __nv_bfloat16* __restrict__ scale,
+                                   const __nv_bfloat16* __restrict__ shift, long long ss_stride,
+                                   int B, int H, int W, int C) {
+  static_assert(MODE == kModeConv1Z || MODE == kModeDgrad2, "the second-tile modes");
+  using namespace bf16cfg;
+  constexpr int BN = kBN;
+  constexpr int S = kStages;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kPBars);
+  uint64_t* empty = full + S;
+  uint64_t* res_ready = empty + S;
+
+  const int tiles = B * ((H + kTileH - 1) / kTileH) * ((W + kTileW - 1) / kTileW) *
+                    ((C + BN - 1) / BN);
+  const int kslices = C / kBK;
+  const int kblocks = 9 * kslices;
+  init_ring(full, S, kTileH);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp >= kConsumerWarps) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    // the producer runs on into the next tile while the consumers finish one
+    if (threadIdx.x == 32 * kConsumerWarps) {
+      int it = 0;  // k-blocks issued by this block, all tiles
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const TileCoords tc = tile_at(tile, B, H, W, BN);
+        for (int kb = 0; kb < kblocks; ++kb, ++it) {
+          const int s = it % S;
+          mbar_wait(&empty[s], ((it / S) & 1) ^ 1);
+          unsigned char* stage = smem + s * kStageBytes;
+          const int tap = kb / kslices;
+          mbar_arrive_expect_tx(&full[s], kStageBytes);
+          tma_load_4d(stage, &map_in, &full[s], (kb - tap * kslices) * kBK,
+                      tc.w0 + tap % 3 - 1, tc.h0 + tap / 3 - 1, tc.b);
+          tma_load_3d(stage + kABytes, &map_w, &full[s], kb * kBK, tc.n0, 0);
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+
+  const int row = warp / 4;  // this warpgroup's output row: h0 + row
+  const int t = threadIdx.x % 128;
+  const bool leader = t == 0;  // issues this warpgroup's TMA loads and stores
+  unsigned char* epi = smem + kEpi + row * kOutRowBytes;
+  float* p_bias = reinterpret_cast<float*>(smem + kPParams) + row * 3 * BN;
+  float* p_scale1 = p_bias + BN;
+  float* p_shift = p_scale1 + BN;
+  const int r8 = lane / 4;
+  const int q = lane % 4;
+  const int w_lo = (warp % 4) * 16 + r8;
+  int it = 0;  // k-blocks consumed by this block, all tiles
+  int phase = 0;  // of res_ready[row]
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const TileCoords tc = tile_at(tile, B, H, W, BN);
+    const int w0 = tc.w0, h0 = tc.h0, b = tc.b, n0 = tc.n0;
+    const int boxes = min(BN, C - n0) / 64;  // 64-channel boxes of the tile inside C
+    // the tile's bias, scale + 1 and shift, read now and written to this
+    // warpgroup's slots after the main loop
+    float pv[3][BN / 128];
+#pragma unroll
+    for (int i = 0; i < BN / 128; ++i) {
+      const int n = n0 + t + 128 * i;
+      const bool in_c = n < C;
+      const long long ss = b * ss_stride + n;
+      pv[0][i] = in_c && MODE == kModeConv1Z ? __bfloat162float(bias[n]) : 0.0f;
+      pv[1][i] = in_c ? __bfloat162float(scale[ss]) + 1.0f : 0.0f;
+      pv[2][i] = in_c ? __bfloat162float(shift[ss]) : 0.0f;
+    }
+
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+    for (int kb = 0; kb < kblocks; ++kb, ++it) {
+      const int s = it % S;
+      mbar_wait(&full[s], (it / S) & 1);
+      const unsigned char* a = smem + s * kStageBytes + row * kBoxBytes;
+      const unsigned char* bt = smem + s * kStageBytes + kABytes;
+      fence_operands(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < kBK / 16; ++k)
+        wgmma_m64n256k16(acc, smem_desc(a + 32 * k), smem_desc(bt + 32 * k));
+      wgmma_commit();
+      wgmma_wait<1>();  // k-block kb - 1 is done with its stage; kb stays in flight
+      fence_operands(acc);
+      if (kb > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % S]);
+      if (MODE == kModeDgrad2 && kb == kResLoadKb && leader) {
+        // z into the output tile, once the last tile's stores have read it
+        bulk_wait_read();
+        mbar_arrive_expect_tx(&res_ready[row], boxes * kBoxBytes);
+        for (int j = 0; j < boxes; ++j)
+          tma_load_4d(epi + j * kBoxBytes, &map_res, &res_ready[row], n0 + j * 64, w0, h0 + row,
+                      b);
+      }
+    }
+    wgmma_wait<0>();
+    fence_operands(acc);
+    if (lane == 0) mbar_arrive(&empty[(it - 1) % S]);  // the tile's last stage
+
+    // Epilogue, this warpgroup alone; layout as in conv3x3_bf16_kernel.
+    // Every thread of the warpgroup is past the last tile's reads of its
+    // parameters: they come before that tile's last two barriers.
+#pragma unroll
+    for (int i = 0; i < BN / 128; ++i) {
+      p_bias[t + 128 * i] = pv[0][i];
+      p_scale1[t + 128 * i] = pv[1][i];
+      p_shift[t + 128 * i] = pv[2][i];
+    }
+    if (MODE == kModeConv1Z && leader) bulk_wait_read();  // the last tile's h has left
+    warpgroup_sync(row);
+    if (MODE == kModeDgrad2) {
+      mbar_wait(&res_ready[row], phase);
+      phase ^= 1;
+    }
+    // first tile: mode 3 z = acc + bias; mode 4 dz = du (scale + 1), and du
+    // kept in acc
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int n = j * 8 + q * 2;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int w = w_lo + 8 * half;
+        const int off = (j / 8) * kBoxBytes + w * 128 + (((j % 8) ^ r8) * 16) + q * 4;
+        __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(epi + off);
+        float& v0 = acc[4 * j + 2 * half];
+        float& v1 = acc[4 * j + 2 * half + 1];
+        if constexpr (MODE == kModeConv1Z) {
+          *p = __floats2bfloat162_rn(v0 + p_bias[n], v1 + p_bias[n + 1]);
+        } else {
+          const float2 z = __bfloat1622float2(*p);
+          v0 = dgrad2_du_fast(v0, z.x, p_scale1[n], p_shift[n]);
+          v1 = dgrad2_du_fast(v1, z.y, p_scale1[n + 1], p_shift[n + 1]);
+          *p = __floats2bfloat162_rn(v0 * p_scale1[n], v1 * p_scale1[n + 1]);
+        }
+      }
+    }
+    // make the generic-proxy writes visible to TMA, then the leader stores
+    fence_proxy_async();
+    warpgroup_sync(row);
+    const CUtensorMap* first = MODE == kModeConv1Z ? &map_aux : &map_out;
+    const CUtensorMap* second = MODE == kModeConv1Z ? &map_out : &map_aux;
+    if (leader) {
+      for (int j = 0; j < boxes; ++j)
+        tma_store_4d(first, epi + j * kBoxBytes, n0 + j * 64, w0, h0 + row, b);
+      bulk_commit();
+    }
+    if constexpr (MODE == kModeConv1Z) {
+      // h = silu((acc + bias) (scale + 1) + shift) while that store reads
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int n = j * 8 + q * 2;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = n + (e & 1);
+          const float v = acc[4 * j + e] + p_bias[c];
+          acc[4 * j + e] = silu_fast(v * p_scale1[c] + p_shift[c]);
+        }
+      }
+    }
+    // second tile: h or du, from acc into the same buffer
+    if (leader) bulk_wait_read();
+    warpgroup_sync(row);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int w = w_lo + 8 * half;
+        const int off = (j / 8) * kBoxBytes + w * 128 + (((j % 8) ^ r8) * 16) + q * 4;
+        *reinterpret_cast<__nv_bfloat162*>(epi + off) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+      }
+    }
+    fence_proxy_async();
+    warpgroup_sync(row);
+    if (leader) {
+      for (int j = 0; j < boxes; ++j)
+        tma_store_4d(second, epi + j * kBoxBytes, n0 + j * 64, w0, h0 + row, b);
+      bulk_commit();
+    }
+  }
+  if (leader) bulk_wait_read();  // shared memory outlives the last stores' reads
 }
 
 // v -> (hi, lo) with hi = tf32(v) in v, lo = tf32(v - hi).
@@ -676,7 +964,7 @@ dim3 grid_of(int B, int H, int W, int C, int bn) {
 
 template <int MODE>
 cudaError_t launch_bf16(const CUtensorMap& in, const CUtensorMap& wt, const CUtensorMap& res,
-                        const CUtensorMap& out, const CUtensorMap& aux, const void* bias,
+                        const CUtensorMap& out, const CUtensorMap&, const void* bias,
                         const void* scale, const void* shift, long long ss_stride,
                         const void* res_f32, void* out_f32, int B, int H, int W, int C,
                         cudaStream_t stream) {
@@ -685,9 +973,32 @@ cudaError_t launch_bf16(const CUtensorMap& in, const CUtensorMap& wt, const CUte
   const cudaError_t e = allow_smem(kernel, bf16cfg::kSmemBytes, smem_set);
   if (e != cudaSuccess) return e;
   kernel<<<grid_of(B, H, W, C, bf16cfg::kBN), kBlockThreads, bf16cfg::kSmemBytes, stream>>>(
-      in, wt, res, out, aux, static_cast<const __nv_bfloat16*>(bias),
+      in, wt, res, out, static_cast<const __nv_bfloat16*>(bias),
       static_cast<const __nv_bfloat16*>(scale), static_cast<const __nv_bfloat16*>(shift),
       ss_stride, static_cast<const float*>(res_f32), static_cast<float*>(out_f32), H, W, C);
+  return cudaGetLastError();
+}
+
+// Modes 3 and 4: min(tiles, SMs) persistent blocks, the SM count the device's.
+template <int MODE>
+cudaError_t launch_bf16_persistent(const CUtensorMap& in, const CUtensorMap& wt,
+                                   const CUtensorMap& res, const CUtensorMap& out,
+                                   const CUtensorMap& aux, const void* bias, const void* scale,
+                                   const void* shift, long long ss_stride, const void*, void*,
+                                   int B, int H, int W, int C, cudaStream_t stream) {
+  auto kernel = conv3x3_bf16_persistent_kernel<MODE>;
+  static std::atomic<uint64_t> smem_set{0};
+  cudaError_t e = allow_smem(kernel, bf16cfg::kPSmemBytes, smem_set);
+  if (e != cudaSuccess) return e;
+  int device = 0, sms = 0;
+  if ((e = cudaGetDevice(&device)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return e;
+  const dim3 tiles = grid_of(B, H, W, C, bf16cfg::kBN);
+  kernel<<<std::min(static_cast<int>(tiles.x * tiles.y), sms), bf16cfg::kPThreads,
+           bf16cfg::kPSmemBytes, stream>>>(in, wt, res, out, aux, static_cast<const __nv_bfloat16*>(bias),
+                     static_cast<const __nv_bfloat16*>(scale),
+                     static_cast<const __nv_bfloat16*>(shift), ss_stride, B, H, W, C);
   return cudaGetLastError();
 }
 
@@ -730,8 +1041,8 @@ extern "C" int hicdiff_conv3x3_bf16(const void* x, const void* wt, const void* b
   static const Launch kLaunch[] = {nullptr,
                                    &launch_bf16<kModeConv1>,
                                    &launch_bf16<kModeConv2>,
-                                   &launch_bf16<kModeConv1Z>,
-                                   &launch_bf16<kModeDgrad2>,
+                                   &launch_bf16_persistent<kModeConv1Z>,
+                                   &launch_bf16_persistent<kModeDgrad2>,
                                    &launch_bf16<kModeDgrad1>,
                                    &launch_bf16<kModeConv2F32>,
                                    &launch_bf16<kModeDgrad1F32>};

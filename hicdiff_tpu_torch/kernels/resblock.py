@@ -47,6 +47,7 @@ convT(dz) in mode 7.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -251,8 +252,9 @@ def _check_cuda_tensor(t):
 
 def _launch(fn, lib, src, weight, bias, scale, shift, res, out, mode, aux=None, counter=None):
     """One launch of the conv kernel in epilogue `mode`, counted in
-    `counter.launches` (default `fused_resblock`), and a launch in an
-    fp32-stream mode (6, 7) also in `counter.stream_launches`."""
+    `counter.launches` (default `fused_resblock`) and by mode in
+    `counter.mode_launches`, and a launch in an fp32-stream mode (6, 7) also
+    in `counter.stream_launches`."""
     b, h, w, c = src.shape
     status = fn(
         src.data_ptr(), weight.data_ptr(), bias.data_ptr(), scale.data_ptr(),
@@ -263,6 +265,7 @@ def _launch(fn, lib, src, weight, bias, scale, shift, res, out, mode, aux=None, 
     _build.check_status(lib, status, "fused_resblock")
     counter = counter or fused_resblock
     counter.launches += 1
+    counter.mode_launches[mode] += 1
     if mode in (_CONV2_F32, _DGRAD1_F32):
         counter.stream_launches += 1
 
@@ -417,3 +420,5 @@ class FusedResblockFn(torch.autograd.Function):
 
 fused_resblock.launches = fused_resblock.stream_launches = 0
 resblock_dgrad.launches = resblock_dgrad.stream_launches = 0
+fused_resblock.mode_launches = collections.Counter()
+resblock_dgrad.mode_launches = collections.Counter()
