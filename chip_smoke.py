@@ -90,12 +90,14 @@ also where its thread-block clusters differ (C = 128 and 384, a ragged W,
 batch 64: within 1e-3, bit-equal twice), timed at batch 64 beside cuDNN's.
 The bf16 training forward (mode 3, then 2) is timed the same way beside its
 bound and cuDNN's pair that also keeps z. Phase `conv_modes_bf16` holds the
-persistent kernel's modes 3 and 4, through the C entry, to their plain
-versions at the bf16 bar at MODES_34_SHAPES (main, ragged, training
-batches, C = 128, 384, 512, batch 1, tile counts no multiple of the SM
-count), each bit-equal over two calls, then times modes 1-5 alone at batch
-8, 64 and 66 with each one's share of one conv's bound, and modes 3 and 4
-beside cuDNN's time for the same function. The train phases check by the
+persistent kernel's modes 3 and 4, and 6 and 7 on the fp32 stream (after
+modes 1 and 4), through the C entry, to their plain versions at the bf16
+bar at MODES_34_SHAPES (main, ragged, training batches, C = 128, 384, 512,
+batch 1, tile counts no multiple of the SM count), each bit-equal over two
+calls, then times modes 1-7 alone at batch 8, 64 and 66 with each one's
+share of one conv's bound, and modes 3, 4, 6 and 7 beside cuDNN's time for
+the same function; the fp32-stream rows of the kernels line carry mode 6's
+or 7's batch-64 row. The train phases check by the
 wrappers' per-mode counts that each step launches modes 3 and 4 once a
 block. `train_bf16` and
 `train_uncond_bf16` run train_torch.py --bf16 for an epoch (launch counters,
@@ -1061,6 +1063,22 @@ def library_mode4(gy, z, w_oihw, scale, shift):
     return (du * (sc + 1)).permute(0, 2, 3, 1), du.permute(0, 2, 3, 1)
 
 
+def library_mode6(h, w_oihw, bias, stream):
+    """Mode 6's yardstick: the cuDNN bf16 conv on a channels_last view and
+    the eager epilogue, the bf16 branch added to the fp32 stream in fp32.
+    Timed here only."""
+    y = F.conv2d(h.permute(0, 3, 1, 2), w_oihw, bias, padding=1) * 0.1
+    return (y.float() + stream.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+def library_mode7(dz, w_oihw, stream):
+    """Mode 7's yardstick: the cuDNN bf16 transposed conv, its bf16 output
+    added to the fp32 g in fp32 (library_dgrad's second half). Timed here
+    only."""
+    dx = F.conv_transpose2d(dz.permute(0, 3, 1, 2), w_oihw, padding=1)
+    return (dx.float() + stream.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
 def modes_34_checks(dev):
     """Modes 3 and 4 through the C entry against their plain versions on the
     same bf16 inputs at MODES_34_SHAPES, at the bf16 bar; each twice, bit
@@ -1105,14 +1123,69 @@ def modes_34_checks(dev):
     return checks
 
 
+def modes_67_checks(dev):
+    """The fp32-stream modes through the C entry against their plain
+    versions at MODES_34_SHAPES, at the bf16 bar: mode 1 then mode 6 from
+    the bf16 cast of an fp32 stream against fused_resblock_reference(...,
+    residual=), mode 4 then mode 7 against _dgrad_reference(..., stream=)
+    (dx fp32, dz and du); each pair twice, bit for bit."""
+    from hicdiff_tpu_torch.kernels.resblock import (
+        _dgrad_reference,
+        fused_resblock_reference,
+        prepare_weight,
+        transpose_kernel,
+    )
+
+    bf = torch.bfloat16
+    gd = torch.Generator(device=dev).manual_seed(14)
+    checks = {}
+    for shape in MODES_34_SHAPES:
+        b, _, _, c = shape
+        xs, gs = (torch.randn(shape, generator=gd, device=dev) * 0.5 for _ in range(2))
+        z = (torch.randn(shape, generator=gd, device=dev) * 0.5).to(bf)
+        kernel = (torch.randn(3, 3, c, c, generator=gd, device=dev) / (9 * c) ** 0.5).to(bf)
+        bias = (torch.randn(c, generator=gd, device=dev) * 0.05).to(bf)
+        scale, shift = (torch.randn(b, 2 * c, generator=gd, device=dev) * 0.5).to(bf).chunk(2, -1)
+        xb, gb = xs.to(bf), gs.to(bf)
+        kernel_t = transpose_kernel(kernel)
+        wp, wt = prepare_weight(kernel), prepare_weight(kernel_t)
+        runs = []
+        for _ in range(2):
+            h1, dz4, du4 = (torch.empty(shape, device=dev, dtype=bf) for _ in range(3))
+            y6, dx7 = (torch.empty(shape, device=dev) for _ in range(2))
+            conv_mode(1, xb, wp, bias, scale, shift, None, h1, None)
+            conv_mode(6, h1, wp, bias, scale, shift, xs, y6, None)
+            conv_mode(4, gb, wt, scale, scale, shift, z, dz4, du4)
+            conv_mode(7, dz4, wt, scale, scale, shift, gs, dx7, None)
+            runs.append((y6, dx7, dz4, du4))
+        y_want = fused_resblock_reference(xb, kernel, bias, scale, shift, residual=xs)
+        dx_want, dz_want, du_want = _dgrad_reference(gb, z, scale, shift, kernel_t, stream=gs)
+        torch.cuda.synchronize()
+        row = {n: bar_share(got, want, "bf16") for n, got, want in
+               zip(("y", "dx", "dz", "du"), runs[0], (y_want, dx_want, dz_want, du_want))}
+        for n, (err, share) in row.items():
+            check(share <= 1, f"bf16 conv mode {6 if n == 'y' else 7} {shape} {n}: "
+                              f"max-abs {err}, {share} of its bar")
+        check(runs[0][0].dtype == runs[0][1].dtype == torch.float32,
+              "the fp32-stream modes write fp32")
+        again = all(torch.equal(a, b_) for a, b_ in zip(*runs))
+        check(again, f"bf16 conv modes 6 and 7 {shape}: two calls differ")
+        checks[str(shape)] = dict(max_abs_err_and_share_of_bar=row, bit_equal_repeat=again)
+        del xs, gs, z, kernel, bias, scale, shift, xb, gb, kernel_t, wp, wt, runs
+    return checks
+
+
 def conv_modes_bf16(dev, card):
     """The bf16 conv's epilogue modes through the C entry (not counted: no
-    main-path launches). First modes 3 and 4, the persistent kernel,
-    against their plain versions at MODES_34_SHAPES (modes_34_checks). Then
-    each of modes 1-5 timed alone by CUDA events at batch 8, 64 and 66, with
-    its share of one conv's bound (2 B H W C 9C FLOPs at 989 TFLOP/s), and
-    modes 3 and 4 beside cuDNN's time for the same function (library_mode3,
-    library_mode4), which the port never calls. Mode 1 against mode 3 is
+    main-path launches). First the persistent kernel's modes 3 and 4, and 6
+    and 7, against their plain versions at MODES_34_SHAPES
+    (modes_34_checks, modes_67_checks). Then each of modes 1-7 timed alone
+    by CUDA events at batch 8, 64 and 66, with its share of one conv's
+    bound (2 B H W C 9C FLOPs at 989 TFLOP/s), and modes 3, 4, 6 and 7
+    beside cuDNN's time for the same function (library_mode3,
+    library_mode4, library_mode6, library_mode7), which the port never
+    calls. Modes 6 and 7 read bf16 and the fp32 stream and write fp32: 10
+    bytes an element. Mode 1 against mode 3 is
     the same conv and epilogue, less the store of z; mode 5 against mode 4
     the same conv with a residual read and one store, against z read by
     TMA, the silu derivative and the stores of dz and du. Batch 66 fills
@@ -1124,6 +1197,7 @@ def conv_modes_bf16(dev, card):
 
     t0 = time.time()
     checks = modes_34_checks(dev)
+    checks_67 = modes_67_checks(dev)
     bf = torch.bfloat16
     gd = torch.Generator(device=dev).manual_seed(12)
     rows = {}
@@ -1136,13 +1210,18 @@ def conv_modes_bf16(dev, card):
         w_lib = kernel.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         gy, z, hid, dz, out, du = (torch.randn(shape, generator=gd, device=dev).to(bf)
                                    for _ in range(6))
+        stream, out32 = (torch.randn(shape, generator=gd, device=dev) for _ in range(2))
         bound, _ = bound_ms(2 * x.numel() * 9 * shape[-1], 0, bf)
-        # mode: (src, weight, bias, res, out, aux, tensors moved)
+        # mode: (src, weight, bias, res, out, aux, bf16-sized tensors moved)
         launches = {1: (x, wp, bias, None, hid, None, 2), 3: (x, wp, bias, None, hid, z, 3),
                     2: (hid, wp, bias, x, out, None, 3), 4: (gy, wt, scale, z, dz, du, 4),
-                    5: (dz, wt, scale, gy, out, None, 3)}
+                    5: (dz, wt, scale, gy, out, None, 3),
+                    6: (hid, wp, bias, stream, out32, None, 5),
+                    7: (dz, wt, scale, stream, out32, None, 5)}
         library = {3: lambda: library_mode3(x, w_lib, bias, scale, shift),
-                   4: lambda: library_mode4(gy, z, w_lib, scale, shift)}
+                   4: lambda: library_mode4(gy, z, w_lib, scale, shift),
+                   6: lambda: library_mode6(hid, w_lib, bias, stream),
+                   7: lambda: library_mode7(dz, w_lib, stream)}
         row = {"bound_ms": bound}
         for mode, (src, wgt, bia, res, dst, aux, moved) in launches.items():
             ms = cuda_ms(lambda: conv_mode(mode, src, wgt, bia, scale, shift, res, dst, aux),
@@ -1153,15 +1232,19 @@ def conv_modes_bf16(dev, card):
                 row[f"mode{mode}"]["library_ms"] = cuda_ms(library[mode], iters=10)
         row["mode3_minus_mode1_ms"] = row["mode3"]["ms"] - row["mode1"]["ms"]
         row["mode4_minus_mode5_ms"] = row["mode4"]["ms"] - row["mode5"]["ms"]
+        row["mode6_minus_mode2_ms"] = row["mode6"]["ms"] - row["mode2"]["ms"]
+        row["mode7_minus_mode5_ms"] = row["mode7"]["ms"] - row["mode5"]["ms"]
         rows[b] = row
         del x, kernel, bias, te, scale, shift, wp, wt, w_lib, gy, z, hid, dz, out, du
+        del stream, out32
     per_image = {f"mode{m}": rows[TRAIN_BATCH][f"mode{m}"]["ms_per_image"]
-                 / rows[8][f"mode{m}"]["ms_per_image"] for m in (1, 2, 3, 4, 5)}
+                 / rows[8][f"mode{m}"]["ms_per_image"] for m in range(1, 8)}
     waves = {f"mode{m}": rows[TRAIN_BATCH][f"mode{m}"]["ms"]
-             / (rows[66][f"mode{m}"]["ms"] * TRAIN_BATCH / 66) for m in (1, 2, 3, 4, 5)}
+             / (rows[66][f"mode{m}"]["ms"] * TRAIN_BATCH / 66) for m in range(1, 8)}
     torch.cuda.synchronize()
     phase("conv_modes_bf16", t0, shape_hwc=(64, 64, 256), tol_bf16_of_max1_largest=BF16_TOL,
-          modes_34_checks=checks, by_batch=rows, per_image_ratio_64_to_8=per_image,
+          modes_34_checks=checks, modes_67_checks=checks_67, by_batch=rows,
+          per_image_ratio_64_to_8=per_image,
           ratio_64_to_66_scaled=waves, card=card)
     return rows
 
@@ -1309,13 +1392,15 @@ def resblock_backward_bf16(dev, card, g):
             lambda: library_resblock(xsb, w_lib, bias, scale, shift, residual=xs), flops,
             # x in bf16 and the fp32 stream read, the fp32 y written
             act + 2 * act + 2 * act + wp.numel() * 2 + (c + 2 * b * c) * 2, mode6[0],
-            modes=[1, 6])
+            modes=[1, 6],
+            kernels=["conv3x3_bf16_kernel<1>", "conv3x3_bf16_persistent_kernel<6>"])
     measure("fused_resblock_dgrad_f32_stream",
             lambda: resblock_dgrad(gsb, z, scale, shift, wt, gs),
             lambda: _dgrad_reference(gsb, z, scale, shift, kernel_t, gs),
             lambda: library_dgrad(gsb, z, w_lib, scale, shift, stream=gs), flops,
             # g in bf16, the fp32 g, z read; dz, du and the fp32 dx written
-            act + 2 * act + act + 2 * act + 2 * act + params, mode7[0], modes=[4, 7])
+            act + 2 * act + act + 2 * act + 2 * act + params, mode7[0], modes=[4, 7],
+            kernels=["conv3x3_bf16_persistent_kernel<4>", "conv3x3_bf16_persistent_kernel<7>"])
     phase("fused_resblock_backward", t0, kernel="bf16_checks", dtype="bfloat16",
           tol_bf16_of_max1_largest=BF16_TOL, tol_sums_of_largest=SUMS_TOL,
           errors_max_abs_and_share_of_bar=errs, card=card)
@@ -3066,7 +3151,7 @@ def main():
     # ---- 3b. the block's backward kernels vs the plain twin, timed beside their bounds
     bwd_rows = resblock_backward(dev, card, g)
     bwd_rows_bf16 = resblock_backward_bf16(dev, card, g)
-    conv_modes_bf16(dev, card)
+    modes_bf16 = conv_modes_bf16(dev, card)
 
     # ---- 4. full backbone forward: kernel path (CUDA) vs plain path (CPU)
     t0 = time.time()
@@ -3246,6 +3331,11 @@ def main():
                                  "JAX package trains through hicdiff_tpu/models/hicedrn.py:55-64)")
         if stream:
             entry["launches"] = zoo_pre_bf16[att][name]
+            # the fp32-stream mode alone at the training batch (conv_modes_bf16)
+            alone = 6 if base == "fused_resblock" else 7
+            entry[f"mode{alone}_alone_batch64"] = {
+                **modes_bf16[TRAIN_BATCH][f"mode{alone}"],
+                "bound_ms": modes_bf16[TRAIN_BATCH]["bound_ms"]}
             if base == "fused_resblock":
                 entry["replaces"] = ("hicdiff_tpu/kernels/resblock.py:101, on the att "
                                      "variant's fp32 stream (the JAX package runs those "

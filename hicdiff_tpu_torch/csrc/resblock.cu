@@ -48,11 +48,12 @@
 //   * Both epilogues (bias, scale/shift, SiLU, x0.1, residual, cast) run on
 //     the fp32 accumulators, the same operations in the same order as the
 //     plain version, before the single store of the output tile.
-// bf16 (conv3x3_bf16_kernel, modes 1, 2, 5, 6, 7, one block a tile): k16
+// bf16 (conv3x3_bf16_kernel, modes 1, 2 and 5 only, one block a tile): k16
 //   steps of bf16 products, 3 stages of 48 KB; the epilogue writes a
 //   swizzled shared tile (mode 2 first reads the residual there, loaded by
 //   TMA during the main loop) and leaves by TMA stores, which write only the
-//   in-bounds part of a box. Modes 3 and 4 run the persistent form below.
+//   in-bounds part of a box. Modes 3, 4, 6 and 7 run the persistent form
+//   below.
 // fp32 (conv3x3_3xtf32_kernel): one TF32 product keeps ~3 decimal digits,
 //   short of the 1e-4 the port holds fp32 to. Three products do:
 //     a * b ~= a_lo * b_hi + a_hi * b_lo + a_hi * b_hi,
@@ -148,12 +149,37 @@
 //     spills 232 bytes and runs 17 % slower.
 // The bf16 attention variant's residual stream is fp32 (its post-norm's fp32
 // scale promotes it), so its blocks read the stream cast to bf16 and take
-// two modes of the bf16 kernel whose epilogues read and write fp32 straight
-// from the registers:
+// two modes of the bf16 kernel whose epilogues read and write fp32:
 //   mode 6: conv #2 on that stream, y = fp32(bf16((conv(h) + bias) 0.1)) + x;
 //   mode 7: conv #1's dgrad there, dx = fp32(bf16(convT(dz))) + g, g fp32:
 // the bf16 branch is rounded, then added in fp32, as the JAX package adds
 // its bf16 block output (and the cast's cotangent) to the fp32 stream.
+//
+// bf16 modes 6 and 7 (the persistent kernel, its skeleton as above). They
+// move the most bytes of any mode, 10 an element (bf16 in, fp32 stream in,
+// fp32 out), so their epilogue is the longest. A warpgroup's fp32 row (64
+// pixels x 256 channels, 64 KB) is twice its 32 KB row of the output tile,
+// so the stream passes through that row in parts of 64 channels (16 KB, two
+// 128-byte-swizzled (32 c, 64 w) fp32 boxes), two slots at a time: TMA loads
+// the first two parts at k-block kResLoadKb, as mode 4 loads z; the epilogue
+// adds the rounded branch to a part in place, the leader stores it by TMA,
+// waits until the store has read the slot and loads the part after next
+// into it while the other slot's part is added. Each choice timed against
+// its alternative by tools/conv_bf16_variants.py (H100, batch 64, modes 6 /
+// 7; the one-tile kernel this replaced: 0.624 / 0.608 ms):
+//   * Staged through shared memory by TMA, 0.538 / 0.534 ms, against the
+//     same persistent loop reading the stream with __ldg and storing float2
+//     from the registers (4 stages, no output tile, the stream asked for in
+//     L2 half a main loop ahead): 0.805 / 0.802. A quad of lanes covers one
+//     pixel's whole 32-byte sector, but every warp's load or store still
+//     touches 8 pixels' lines, 128 instructions a thread a tile, and the
+//     load latency sits in each epilogue.
+//   * Parts of 64 channels in two slots, against two parts of 128 channels
+//     (the whole row, so the second part's load waits for the first part's
+//     store): 0.555 / 0.548; parts of 32 in four slots tie (0.539 / 0.533).
+//   * No L2 prefetch: asking for the later parts in L2 by TMA when the first
+//     two are loaded costs 0.035 ms (0.573 / 0.561).
+//   * Persistent, against one block a tile on the same code: 0.561 / 0.551.
 // The weight gradient and the channel sums are csrc/resblock_bwd.cu's.
 // A dgrad is one conv's FLOPs, so it runs at the forward's rate.
 
@@ -243,12 +269,20 @@ constexpr int kEpi = kStages * kStageBytes;           // [row][kBN / 64][64 w][6
 constexpr int kParams = kEpi + kTileH * kOutRowBytes;  // bias, scale, shift: fp32
 constexpr int kBars = kParams + 3 * kBN * 4;          // full[S], empty[S], res[rows]
 constexpr int kSmemBytes = kBars + (2 * kStages + kTileH) * 8 + 1024;  // + align slack
-// The persistent kernel of modes 3 and 4: the same ring and output tile, and
-// each consumer warpgroup's own parameters (bias, scale + 1, shift), which it
-// rewrites for every tile while the other warpgroup may still read its own.
+// The fp32 stream of modes 6 and 7 passes through a warpgroup's 32 KB row of
+// the output tile in parts of kStreamCh channels (64 w x 64 c x 4 B = 16 KB,
+// two (32 c, 64 w) fp32 boxes), kStreamSlots parts at a time.
+constexpr int kStreamCh = 64;
+constexpr int kStreamBoxes = kStreamCh / 32;
+constexpr int kStreamSlots = kOutRowBytes / (kStreamBoxes * kBoxBytes);
+// The persistent kernel of modes 3, 4, 6 and 7: the same ring and output
+// tile, each consumer warpgroup's own parameters (bias, scale + 1, shift),
+// which it rewrites for every tile while the other warpgroup may still read
+// its own, and the barriers: the ring's, then a row's, one a slot of the
+// stream (mode 4's z takes the first).
 constexpr int kPParams = kEpi + kTileH * kOutRowBytes;     // [row][bias, scale + 1, shift][kBN]
-constexpr int kPBars = kPParams + kTileH * 3 * kBN * 4;    // full[S], empty[S], res[rows]
-constexpr int kPSmemBytes = kPBars + (2 * kStages + kTileH) * 8 + 1024;  // + align slack
+constexpr int kPBars = kPParams + kTileH * 3 * kBN * 4;    // full[S], empty[S], [row][slot]
+constexpr int kPSmemBytes = kPBars + (2 * kStages + kTileH * kStreamSlots) * 8 + 1024;
 static_assert(kPSmemBytes <= 232448, "227 KB of shared memory a block");
 // Two consumer warpgroups and a whole producer warpgroup: ptxas budgets
 // registers per warpgroup (168 a thread for 288 or 384 threads), and
@@ -433,21 +467,24 @@ __host__ __device__ constexpr bool reads_res_tile(int mode) {
 __host__ __device__ constexpr bool writes_aux_tile(int mode) {
   return mode == kModeConv1Z || mode == kModeDgrad2;
 }
+// The bf16 modes on the att variant's fp32 stream: the persistent kernel's.
+__host__ __device__ constexpr bool on_f32_stream(int mode) {
+  return mode == kModeConv2F32 || mode == kModeDgrad1F32;
+}
 
-// Modes 1, 2, 5, 6 and 7: one block a tile.
+// Modes 1, 2 and 5: one block a tile.
 template <int MODE>
 __global__ void __launch_bounds__(kBlockThreads, 1)
     conv3x3_bf16_kernel(__grid_constant__ const CUtensorMap map_in,   // A: x, h or dz, box (64,64,2,1)
                         __grid_constant__ const CUtensorMap map_w,    // B: (1, C, 9C), box (64,256,1)
                         __grid_constant__ const CUtensorMap map_res,  // modes 2, 5, box (64,64,1,1)
-                        __grid_constant__ const CUtensorMap map_out,  // modes 1, 2, 5, box (64,64,1,1)
+                        __grid_constant__ const CUtensorMap map_out,  // box (64,64,1,1)
                         const __nv_bfloat16* __restrict__ bias,
                         const __nv_bfloat16* __restrict__ scale,
                         const __nv_bfloat16* __restrict__ shift, long long ss_stride,
-                        const float* __restrict__ res_f32,  // modes 6, 7: the fp32 stream, g
-                        float* __restrict__ out_f32,        // modes 6, 7
                         int H, int W, int C) {
-  static_assert(!writes_aux_tile(MODE), "modes 3 and 4 run conv3x3_bf16_persistent_kernel");
+  static_assert(!writes_aux_tile(MODE) && !on_f32_stream(MODE),
+                "modes 3, 4, 6 and 7 run conv3x3_bf16_persistent_kernel");
   using namespace bf16cfg;
   constexpr int BN = kBN;
   constexpr int S = kStages;
@@ -512,76 +549,47 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
     const int r8 = lane / 4;
     const int q = lane % 4;
     const int w_lo = (warp % 4) * 16 + r8;
-    if constexpr (MODE == kModeConv2F32 || MODE == kModeDgrad1F32) {
-      // The fp32 stream: from the registers straight to device memory, as
-      // the fp32 kernel's epilogue; pixels and channels outside the tensor
-      // are skipped.
-      const int h = h0 + row;
-      if (h < H) {
-        const long long row_base = (static_cast<long long>(b) * H + h) * W;
+    // Each value goes, as bf16, into the (64 w, 64 c) box j / 8 of this
+    // row at 128-byte line w, 16-byte chunk (j % 8) ^ (w % 8): TMA's
+    // 128-byte swizzle.
+    if (reads_res_tile(MODE)) mbar_wait(&res_ready[row], 0);
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int w = w0 + w_lo + 8 * half;
-          if (w >= W) continue;
-          const long long pix = (row_base + w) * C + n0;
+    for (int j = 0; j < BN / 8; ++j) {
+      const int n = j * 8 + q * 2;
 #pragma unroll
-          for (int j = 0; j < BN / 8; ++j) {
-            const int n = j * 8 + q * 2;
-            if (n0 + n >= C) continue;
-            float v0 = acc[4 * j + 2 * half], v1 = acc[4 * j + 2 * half + 1];
-            if constexpr (MODE == kModeConv2F32) {
-              v0 = (v0 + s_bias[n]) * 0.1f;
-              v1 = (v1 + s_bias[n + 1]) * 0.1f;
-            }
-            const float2 r = __ldg(reinterpret_cast<const float2*>(res_f32 + pix + n));
-            *reinterpret_cast<float2*>(out_f32 + pix + n) =
-                make_float2(round_bf16(v0) + r.x, round_bf16(v1) + r.y);
-          }
+      for (int half = 0; half < 2; ++half) {
+        const int w = w_lo + 8 * half;
+        const int off = (j / 8) * kBoxBytes + w * 128 + (((j % 8) ^ r8) * 16) + q * 4;
+        __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(epi + off);
+        float v0 = acc[4 * j + 2 * half], v1 = acc[4 * j + 2 * half + 1];
+        if constexpr (MODE == kModeConv1) {
+          v0 = epilogue<kModeConv1>(v0, s_bias[n], s_scale[n], s_shift[n], 0.0f);
+          v1 = epilogue<kModeConv1>(v1, s_bias[n + 1], s_scale[n + 1], s_shift[n + 1], 0.0f);
+        } else if constexpr (MODE == kModeConv2) {
+          const float2 r = __bfloat1622float2(*p);
+          v0 = epilogue<kModeConv2>(v0, s_bias[n], 0.0f, 0.0f, r.x);
+          v1 = epilogue<kModeConv2>(v1, s_bias[n + 1], 0.0f, 0.0f, r.y);
+        } else {  // kModeDgrad1
+          const float2 r = __bfloat1622float2(*p);
+          v0 += r.x;
+          v1 += r.y;
         }
+        *p = __floats2bfloat162_rn(v0, v1);
       }
-    } else {
-      // Each value goes, as bf16, into the (64 w, 64 c) box j / 8 of this
-      // row at 128-byte line w, 16-byte chunk (j % 8) ^ (w % 8): TMA's
-      // 128-byte swizzle.
-      if (reads_res_tile(MODE)) mbar_wait(&res_ready[row], 0);
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const int n = j * 8 + q * 2;
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int w = w_lo + 8 * half;
-          const int off = (j / 8) * kBoxBytes + w * 128 + (((j % 8) ^ r8) * 16) + q * 4;
-          __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(epi + off);
-          float v0 = acc[4 * j + 2 * half], v1 = acc[4 * j + 2 * half + 1];
-          if constexpr (MODE == kModeConv1) {
-            v0 = epilogue<kModeConv1>(v0, s_bias[n], s_scale[n], s_shift[n], 0.0f);
-            v1 = epilogue<kModeConv1>(v1, s_bias[n + 1], s_scale[n + 1], s_shift[n + 1], 0.0f);
-          } else if constexpr (MODE == kModeConv2) {
-            const float2 r = __bfloat1622float2(*p);
-            v0 = epilogue<kModeConv2>(v0, s_bias[n], 0.0f, 0.0f, r.x);
-            v1 = epilogue<kModeConv2>(v1, s_bias[n + 1], 0.0f, 0.0f, r.y);
-          } else {  // kModeDgrad1
-            const float2 r = __bfloat1622float2(*p);
-            v0 += r.x;
-            v1 += r.y;
-          }
-          *p = __floats2bfloat162_rn(v0, v1);
-        }
-      }
-      // make the generic-proxy writes visible to TMA, then one thread stores
-      fence_proxy_async();
-      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + row) : "memory");
-      if (threadIdx.x % 128 == 0) {
-        for (int j = 0; j < boxes; ++j)
-          tma_store_4d(&map_out, epi + j * kBoxBytes, n0 + j * 64, w0, h0 + row, b);
-        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-      }
+    }
+    // make the generic-proxy writes visible to TMA, then one thread stores
+    fence_proxy_async();
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + row) : "memory");
+    if (threadIdx.x % 128 == 0) {
+      for (int j = 0; j < boxes; ++j)
+        tma_store_4d(&map_out, epi + j * kBoxBytes, n0 + j * 64, w0, h0 + row, b);
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
     }
   }
 }
 
-// ------------------------------------------- bf16 modes 3 and 4: persistent
+// ------------------------------------ bf16 modes 3, 4, 6 and 7: persistent
 
 // Tile `tile` of the persistent grid: the spatial tiles of every image, then
 // the next channel tile, in the order of the one-tile-a-block grid.
@@ -610,21 +618,24 @@ __device__ __forceinline__ void warpgroup_sync(int row) {
 // output tile: by then the last tile's stores have long read it.
 constexpr int kResLoadKb = 2;
 
-// Modes 3 and 4 (see the note at the top): min(tiles, SMs) blocks, each
-// walking the tiles blockIdx.x, blockIdx.x + gridDim.x, ... with the ring's
-// barrier phases carried from tile to tile.
+// Modes 3, 4, 6 and 7 (see the note at the top): min(tiles, SMs) blocks,
+// each walking the tiles blockIdx.x, blockIdx.x + gridDim.x, ... with the
+// ring's barrier phases carried from tile to tile.
 template <int MODE>
 __global__ void __launch_bounds__(bf16cfg::kPThreads, 1)
-    conv3x3_bf16_persistent_kernel(__grid_constant__ const CUtensorMap map_in,   // x or g
+    conv3x3_bf16_persistent_kernel(__grid_constant__ const CUtensorMap map_in,   // x, g or dz
                                    __grid_constant__ const CUtensorMap map_w,
-                                   __grid_constant__ const CUtensorMap map_res,  // mode 4: z
+                                   __grid_constant__ const CUtensorMap map_res,  // z; 6, 7: fp32
                                    __grid_constant__ const CUtensorMap map_out,  // h or dz
                                    __grid_constant__ const CUtensorMap map_aux,  // z or du
                                    const __nv_bfloat16* __restrict__ bias,
                                    const __nv_bfloat16* __restrict__ scale,
                                    const __nv_bfloat16* __restrict__ shift, long long ss_stride,
+                                   const float* __restrict__ res_f32,  // 6, 7: the stream, g
+                                   float* __restrict__ out_f32,        // 6, 7: y, dx
                                    int B, int H, int W, int C) {
-  static_assert(MODE == kModeConv1Z || MODE == kModeDgrad2, "the second-tile modes");
+  static_assert(writes_aux_tile(MODE) || on_f32_stream(MODE),
+                "the second-tile and fp32-stream modes");
   using namespace bf16cfg;
   constexpr int BN = kBN;
   constexpr int S = kStages;
@@ -632,13 +643,13 @@ __global__ void __launch_bounds__(bf16cfg::kPThreads, 1)
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + kPBars);
   uint64_t* empty = full + S;
-  uint64_t* res_ready = empty + S;
+  uint64_t* row_bars = empty + S;
 
   const int tiles = B * ((H + kTileH - 1) / kTileH) * ((W + kTileW - 1) / kTileW) *
                     ((C + BN - 1) / BN);
   const int kslices = C / kBK;
   const int kblocks = 9 * kslices;
-  init_ring(full, S, kTileH);
+  init_ring(full, S, kTileH * kStreamSlots);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (warp >= kConsumerWarps) {
@@ -668,6 +679,7 @@ __global__ void __launch_bounds__(bf16cfg::kPThreads, 1)
   const int t = threadIdx.x % 128;
   const bool leader = t == 0;  // issues this warpgroup's TMA loads and stores
   unsigned char* epi = smem + kEpi + row * kOutRowBytes;
+  uint64_t* res_ready = row_bars + row * kStreamSlots;  // z; the stream's slots
   float* p_bias = reinterpret_cast<float*>(smem + kPParams) + row * 3 * BN;
   float* p_scale1 = p_bias + BN;
   float* p_shift = p_scale1 + BN;
@@ -675,11 +687,12 @@ __global__ void __launch_bounds__(bf16cfg::kPThreads, 1)
   const int q = lane % 4;
   const int w_lo = (warp % 4) * 16 + r8;
   int it = 0;  // k-blocks consumed by this block, all tiles
-  int phase = 0;  // of res_ready[row]
+  int phases = 0;  // bit i: the phase of res_ready[i]
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const TileCoords tc = tile_at(tile, B, H, W, BN);
     const int w0 = tc.w0, h0 = tc.h0, b = tc.b, n0 = tc.n0;
     const int boxes = min(BN, C - n0) / 64;  // 64-channel boxes of the tile inside C
+    const int parts = min(BN, C - n0) / kStreamCh;  // modes 6 and 7
     // the tile's bias, scale + 1 and shift, read now and written to this
     // warpgroup's slots after the main loop
     float pv[3][BN / 128];
@@ -688,9 +701,9 @@ __global__ void __launch_bounds__(bf16cfg::kPThreads, 1)
       const int n = n0 + t + 128 * i;
       const bool in_c = n < C;
       const long long ss = b * ss_stride + n;
-      pv[0][i] = in_c && MODE == kModeConv1Z ? __bfloat162float(bias[n]) : 0.0f;
-      pv[1][i] = in_c ? __bfloat162float(scale[ss]) + 1.0f : 0.0f;
-      pv[2][i] = in_c ? __bfloat162float(shift[ss]) : 0.0f;
+      pv[0][i] = in_c && reads_bias(MODE) ? __bfloat162float(bias[n]) : 0.0f;
+      pv[1][i] = in_c && reads_scale_shift(MODE) ? __bfloat162float(scale[ss]) + 1.0f : 0.0f;
+      pv[2][i] = in_c && reads_scale_shift(MODE) ? __bfloat162float(shift[ss]) : 0.0f;
     }
 
     float acc[BN / 2];
@@ -713,10 +726,21 @@ __global__ void __launch_bounds__(bf16cfg::kPThreads, 1)
       if (MODE == kModeDgrad2 && kb == kResLoadKb && leader) {
         // z into the output tile, once the last tile's stores have read it
         bulk_wait_read();
-        mbar_arrive_expect_tx(&res_ready[row], boxes * kBoxBytes);
+        mbar_arrive_expect_tx(&res_ready[0], boxes * kBoxBytes);
         for (int j = 0; j < boxes; ++j)
-          tma_load_4d(epi + j * kBoxBytes, &map_res, &res_ready[row], n0 + j * 64, w0, h0 + row,
-                      b);
+          tma_load_4d(epi + j * kBoxBytes, &map_res, &res_ready[0], n0 + j * 64, w0, h0 + row, b);
+      }
+      if (on_f32_stream(MODE) && kb == kResLoadKb && leader) {
+        // the stream's first parts into the row's slots, once the last
+        // tile's stores have read them
+        bulk_wait_read();
+        for (int p = 0; p < min(parts, kStreamSlots); ++p) {
+          unsigned char* slot = epi + p * kStreamBoxes * kBoxBytes;
+          mbar_arrive_expect_tx(&res_ready[p], kStreamBoxes * kBoxBytes);
+          for (int i = 0; i < kStreamBoxes; ++i)
+            tma_load_4d(slot + i * kBoxBytes, &map_res, &res_ready[p],
+                        n0 + p * kStreamCh + i * 32, w0, h0 + row, b);
+        }
       }
     }
     wgmma_wait<0>();
@@ -734,9 +758,62 @@ __global__ void __launch_bounds__(bf16cfg::kPThreads, 1)
     }
     if (MODE == kModeConv1Z && leader) bulk_wait_read();  // the last tile's h has left
     warpgroup_sync(row);
+    if constexpr (on_f32_stream(MODE)) {
+      // y = fp32(bf16((acc + bias) 0.1)) + x or dx = fp32(bf16(acc)) + g, a
+      // part at a time in its slot of the row: wait for the stream's part,
+      // add the branch to it in place, store it by TMA; the leader then
+      // waits until that store has read the slot and loads the part after
+      // next into it, which lands while the next part is added.
+#pragma unroll
+      for (int p = 0; p < BN / kStreamCh; ++p) {
+        if (p < parts) {
+          const int si = p % kStreamSlots;
+          unsigned char* slot = epi + si * kStreamBoxes * kBoxBytes;
+          mbar_wait(&res_ready[si], (phases >> si) & 1);
+          phases ^= 1 << si;
+          // channel p kStreamCh + n: box n / 32 of the slot, 128-byte line
+          // w, 16-byte chunk (n % 32) / 4 ^ (w % 8)
+#pragma unroll
+          for (int jj = 0; jj < kStreamCh / 8; ++jj) {
+            const int j = p * (kStreamCh / 8) + jj;
+            const int n = jj * 8 + q * 2;
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              const int w = w_lo + 8 * half;
+              float2* e = reinterpret_cast<float2*>(
+                  slot + (n / 32) * kBoxBytes + w * 128 + ((((n % 32) / 4) ^ r8) * 16) +
+                  (n % 4) * 4);
+              float v0 = acc[4 * j + 2 * half], v1 = acc[4 * j + 2 * half + 1];
+              if constexpr (MODE == kModeConv2F32) {
+                v0 = (v0 + p_bias[p * kStreamCh + n]) * 0.1f;
+                v1 = (v1 + p_bias[p * kStreamCh + n + 1]) * 0.1f;
+              }
+              const float2 r = *e;
+              *e = make_float2(round_bf16(v0) + r.x, round_bf16(v1) + r.y);
+            }
+          }
+          fence_proxy_async();
+          warpgroup_sync(row);
+          if (leader) {
+            for (int i = 0; i < kStreamBoxes; ++i)
+              tma_store_4d(&map_out, slot + i * kBoxBytes, n0 + p * kStreamCh + i * 32, w0,
+                           h0 + row, b);
+            bulk_commit();
+            if (p + kStreamSlots < parts) {
+              bulk_wait_read();
+              mbar_arrive_expect_tx(&res_ready[si], kStreamBoxes * kBoxBytes);
+              for (int i = 0; i < kStreamBoxes; ++i)
+                tma_load_4d(slot + i * kBoxBytes, &map_res, &res_ready[si],
+                            n0 + (p + kStreamSlots) * kStreamCh + i * 32, w0, h0 + row, b);
+            }
+          }
+        }
+      }
+      continue;
+    }
     if (MODE == kModeDgrad2) {
-      mbar_wait(&res_ready[row], phase);
-      phase ^= 1;
+      mbar_wait(&res_ready[0], phases & 1);
+      phases ^= 1;
     }
     // first tile: mode 3 z = acc + bias; mode 4 dz = du (scale + 1), and du
     // kept in acc
@@ -966,8 +1043,7 @@ template <int MODE>
 cudaError_t launch_bf16(const CUtensorMap& in, const CUtensorMap& wt, const CUtensorMap& res,
                         const CUtensorMap& out, const CUtensorMap&, const void* bias,
                         const void* scale, const void* shift, long long ss_stride,
-                        const void* res_f32, void* out_f32, int B, int H, int W, int C,
-                        cudaStream_t stream) {
+                        const void*, void*, int B, int H, int W, int C, cudaStream_t stream) {
   auto kernel = conv3x3_bf16_kernel<MODE>;
   static std::atomic<uint64_t> smem_set{0};
   const cudaError_t e = allow_smem(kernel, bf16cfg::kSmemBytes, smem_set);
@@ -975,17 +1051,19 @@ cudaError_t launch_bf16(const CUtensorMap& in, const CUtensorMap& wt, const CUte
   kernel<<<grid_of(B, H, W, C, bf16cfg::kBN), kBlockThreads, bf16cfg::kSmemBytes, stream>>>(
       in, wt, res, out, static_cast<const __nv_bfloat16*>(bias),
       static_cast<const __nv_bfloat16*>(scale), static_cast<const __nv_bfloat16*>(shift),
-      ss_stride, static_cast<const float*>(res_f32), static_cast<float*>(out_f32), H, W, C);
+      ss_stride, H, W, C);
   return cudaGetLastError();
 }
 
-// Modes 3 and 4: min(tiles, SMs) persistent blocks, the SM count the device's.
+// Modes 3, 4, 6 and 7: min(tiles, SMs) persistent blocks, the SM count the
+// device's.
 template <int MODE>
 cudaError_t launch_bf16_persistent(const CUtensorMap& in, const CUtensorMap& wt,
                                    const CUtensorMap& res, const CUtensorMap& out,
                                    const CUtensorMap& aux, const void* bias, const void* scale,
-                                   const void* shift, long long ss_stride, const void*, void*,
-                                   int B, int H, int W, int C, cudaStream_t stream) {
+                                   const void* shift, long long ss_stride, const void* res_f32,
+                                   void* out_f32, int B, int H, int W, int C,
+                                   cudaStream_t stream) {
   auto kernel = conv3x3_bf16_persistent_kernel<MODE>;
   static std::atomic<uint64_t> smem_set{0};
   cudaError_t e = allow_smem(kernel, bf16cfg::kPSmemBytes, smem_set);
@@ -996,9 +1074,10 @@ cudaError_t launch_bf16_persistent(const CUtensorMap& in, const CUtensorMap& wt,
     return e;
   const dim3 tiles = grid_of(B, H, W, C, bf16cfg::kBN);
   kernel<<<std::min(static_cast<int>(tiles.x * tiles.y), sms), bf16cfg::kPThreads,
-           bf16cfg::kPSmemBytes, stream>>>(in, wt, res, out, aux, static_cast<const __nv_bfloat16*>(bias),
-                     static_cast<const __nv_bfloat16*>(scale),
-                     static_cast<const __nv_bfloat16*>(shift), ss_stride, B, H, W, C);
+           bf16cfg::kPSmemBytes, stream>>>(
+      in, wt, res, out, aux, static_cast<const __nv_bfloat16*>(bias),
+      static_cast<const __nv_bfloat16*>(scale), static_cast<const __nv_bfloat16*>(shift),
+      ss_stride, static_cast<const float*>(res_f32), static_cast<float*>(out_f32), B, H, W, C);
   return cudaGetLastError();
 }
 
@@ -1044,19 +1123,23 @@ extern "C" int hicdiff_conv3x3_bf16(const void* x, const void* wt, const void* b
                                    &launch_bf16_persistent<kModeConv1Z>,
                                    &launch_bf16_persistent<kModeDgrad2>,
                                    &launch_bf16<kModeDgrad1>,
-                                   &launch_bf16<kModeConv2F32>,
-                                   &launch_bf16<kModeDgrad1F32>};
+                                   &launch_bf16_persistent<kModeConv2F32>,
+                                   &launch_bf16_persistent<kModeDgrad1F32>};
   if (mode < kModeConv1 || mode > kModeDgrad1F32) return static_cast<int>(cudaErrorInvalidValue);
   if (encode_tiled() == nullptr) return kErrNoEncoder;
-  const bool f32_stream = mode == kModeConv2F32 || mode == kModeDgrad1F32;
+  const bool f32_stream = on_f32_stream(mode);
   CUtensorMap m_in, m_wt;
   if (!encode_nhwc(&m_in, kBf16, x, B, H, W, C, kTileW, kTileH) ||
       !encode_weight(&m_wt, kBf16, wt, C, 1, bf16cfg::kBN))
     return kErrEncode;
-  // the maps a mode does not read are passed unused, as copies of m_in
+  // the maps a mode does not read are passed unused, as copies of m_in; the
+  // fp32-stream modes' maps of the stream and the output are fp32, box (32,
+  // 64, 1, 1)
   CUtensorMap m_res = m_in, m_out = m_in, m_aux = m_in;
-  if ((!f32_stream && !encode_nhwc(&m_out, kBf16, out, B, H, W, C, kTileW, 1)) ||
-      (reads_res_tile(mode) && !encode_nhwc(&m_res, kBf16, res, B, H, W, C, kTileW, 1)) ||
+  const Elem out_elem = f32_stream ? kF32 : kBf16;
+  if (!encode_nhwc(&m_out, out_elem, out, B, H, W, C, kTileW, 1) ||
+      ((reads_res_tile(mode) || f32_stream) &&
+       !encode_nhwc(&m_res, out_elem, res, B, H, W, C, kTileW, 1)) ||
       (writes_aux_tile(mode) && !encode_nhwc(&m_aux, kBf16, aux, B, H, W, C, kTileW, 1)))
     return kErrEncode;
   return static_cast<int>(kLaunch[mode](m_in, m_wt, m_res, m_out, m_aux, bias, scale, shift,

@@ -545,19 +545,23 @@ def test_bf16_kernels_match_plain_on_the_same_inputs(cuda_device, shape):
         assert _sums_close(a, w_)
 
 
+@pytest.mark.parametrize("modes", [(3, 4), (6, 7)], ids=["modes_3_4", "modes_6_7"])
 @pytest.mark.parametrize("shape", [
     (8, 64, 64, 256), (2, 10, 13, 256), (1, 6, 80, 256), (64, 64, 64, 256), (18, 64, 64, 256),
     (2, 10, 13, 128), (1, 5, 70, 384), (1, 3, 9, 512), (1, 64, 64, 256), (5, 64, 64, 256),
     (6, 64, 64, 512),
 ], ids=["main", "ragged", "two_column_tiles", "train_batch", "train_ragged_batch", "c128",
         "c384", "c512", "batch1_fewer_tiles_than_sms", "160_tiles", "c512_384_tiles"])
-def test_bf16_modes_3_and_4_match_plain(cuda_device, shape):
-    """The persistent kernel's modes 3 (h and z) and 4 (dz and du) through
-    the C entry against their plain versions on the same bf16 inputs, at
-    the bf16 forward bar, and bit-equal over two calls. Batch 1 has 32
-    tiles, fewer than the card's SMs; 160 and 384 tiles are no multiple of
-    its 132, so blocks walk unequal numbers of tiles; C = 128, 384 and 512
-    run a half-empty or a second channel tile."""
+def test_bf16_modes_3_and_4_match_plain(cuda_device, shape, modes):
+    """The persistent kernel's modes through the C entry against their plain
+    versions on the same inputs, at the bf16 forward bar, and bit-equal over
+    two calls: modes 3 (h and z) and 4 (dz and du); or, on the att variant's
+    fp32 stream, mode 1 then 6 (y, fp32) against fused_resblock_reference
+    with `residual`, and mode 4 then 7 (dx, fp32) against _dgrad_reference
+    with `stream`. Batch 1 has 32 tiles, fewer than the card's SMs; 160 and
+    384 tiles are no multiple of its 132, so blocks walk unequal numbers of
+    tiles; C = 128, 384 and 512 run a half-empty or a second channel
+    tile."""
     from hicdiff_tpu_torch.kernels import _build
     from hicdiff_tpu_torch.kernels.resblock import (
         _conv3x3,
@@ -570,11 +574,12 @@ def test_bf16_modes_3_and_4_match_plain(cuda_device, shape):
     lib, fn = _conv3x3(torch.bfloat16)
     stream = torch.cuda.current_stream().cuda_stream
 
-    def launch(mode, src, wgt, bias, res, out, aux):
+    def launch(mode, src, wgt, bias, res, out, aux=None):
         _build.check_status(lib, fn(
             src.data_ptr(), wgt.data_ptr(), bias.data_ptr(), scale.data_ptr(),
             shift.data_ptr(), scale.stride(0), None if res is None else res.data_ptr(),
-            out.data_ptr(), aux.data_ptr(), *shape, mode, stream), "conv3x3")
+            out.data_ptr(), None if aux is None else aux.data_ptr(), *shape, mode, stream),
+            "conv3x3")
 
     g = torch.Generator(device=cuda_device).manual_seed(5)
     b, h, w, c = shape
@@ -588,18 +593,35 @@ def test_bf16_modes_3_and_4_match_plain(cuda_device, shape):
     kernel_t = transpose_kernel(kernel)
     wp, wt = prepare_weight(kernel), prepare_weight(kernel_t)
     runs = []
-    for _ in range(2):
-        h3, z3, dz4, du4 = (torch.empty(shape, device=cuda_device, dtype=bf) for _ in range(4))
-        launch(3, x, wp, bias, None, h3, z3)
-        launch(4, gy, wt, scale, z, dz4, du4)  # no bias: scale stands in for the pointer
-        runs.append((h3, z3, dz4, du4))
-    v = _conv_f32(x.float(), kernel.float(), bias.float())
-    h_want = F.silu(v * (scale.float()[:, None, None] + 1) + shift.float()[:, None, None])
-    _, dz_want, du_want = _dgrad_reference(gy, z, scale, shift, kernel_t)
+    if modes == (3, 4):
+        for _ in range(2):
+            h3, z3, dz4, du4 = (torch.empty(shape, device=cuda_device, dtype=bf)
+                                for _ in range(4))
+            launch(3, x, wp, bias, None, h3, z3)
+            launch(4, gy, wt, scale, z, dz4, du4)  # no bias: scale stands in for the pointer
+            runs.append((h3, z3, dz4, du4))
+        v = _conv_f32(x.float(), kernel.float(), bias.float())
+        h_want = F.silu(v * (scale.float()[:, None, None] + 1) + shift.float()[:, None, None])
+        _, dz_want, du_want = _dgrad_reference(gy, z, scale, shift, kernel_t)
+        names, wants = ("h", "z", "dz", "du"), (h_want.to(bf), v.to(bf), dz_want, du_want)
+    else:
+        xs, gs = (torch.randn(shape, generator=g, device=cuda_device) * 0.5 for _ in range(2))
+        xb, gb = xs.to(bf), gs.to(bf)
+        for _ in range(2):
+            h1, dz4, du4 = (torch.empty(shape, device=cuda_device, dtype=bf) for _ in range(3))
+            y6, dx7 = (torch.empty(shape, device=cuda_device) for _ in range(2))
+            launch(1, xb, wp, bias, None, h1)
+            launch(6, h1, wp, bias, xs, y6)
+            launch(4, gb, wt, scale, z, dz4, du4)
+            launch(7, dz4, wt, scale, gs, dx7)
+            runs.append((y6, dx7, dz4, du4))
+        y_want = fused_resblock_reference(xb, kernel, bias, scale, shift, residual=xs)
+        dx_want, dz_want, du_want = _dgrad_reference(gb, z, scale, shift, kernel_t, stream=gs)
+        names, wants = ("y", "dx", "dz", "du"), (y_want, dx_want, dz_want, du_want)
+        assert y_want.dtype == dx_want.dtype == torch.float32
     torch.cuda.synchronize()
-    for name, got, want in zip(("h", "z", "dz", "du"), runs[0],
-                               (h_want.to(bf), v.to(bf), dz_want, du_want)):
-        assert _bf16_close(got, want, 0.016), name
+    for name, got, want in zip(names, runs[0], wants):
+        assert got.dtype == want.dtype and _bf16_close(got, want, 0.016), name
     for first, second in zip(*runs):
         assert torch.equal(first, second)
 

@@ -1,35 +1,49 @@
 #!/usr/bin/env python
-"""Variants of the bf16 conv's persistent modes 3 and 4, timed beside them on one card.
+"""Variants of the bf16 conv's persistent modes 3, 4, 6 and 7, timed beside them on one card.
 
     python tools/conv_bf16_variants.py [--reps 3]
 
 Compiles patched copies of `hicdiff_tpu_torch/csrc/resblock.cu` (with its
 `hopper.cuh`) into `build/conv_bf16_variants/`, one `nvcc` each, all started
 together, loads each with ctypes, and calls its `hicdiff_conv3x3_bf16` in
-modes 3 and 4 at (64,64,64,256) and (8,64,64,256) on the same bf16 inputs:
-CUDA-event ms (chip_smoke.py's `cuda_ms`), the variants interleaved over
-`--reps` rounds with the committed kernel, which is also timed in modes 1,
-2 and 5 (one block a tile; the same GEMMs). Each loop starts after 0.3 s
-of idle card, and each round starts one variant later than the last: timed
-back to back, the later loops of a round ran slower on the H100 under its
-power cap, the same code included. Beside each variant, its largest
+modes 3 and 4 or 6 and 7 at (64,64,64,256) and (8,64,64,256) on the same
+inputs: CUDA-event ms (chip_smoke.py's `cuda_ms`), the variants interleaved
+over `--reps` rounds with the committed kernel, which is also timed in
+modes 1, 2 and 5 (one block a tile; the same GEMMs). Each loop starts after
+0.3 s of idle card, and each round starts one variant later than the last:
+timed back to back, the later loops of a round ran slower on the H100 under
+its power cap, the same code included. Beside each variant, its largest
 difference from the committed kernel's outputs in the same modes (h and z,
-dz and du; h, y and dx) and the share of them that are not bit-equal.
-Prints the card's name and power limit, then one JSON line per shape. It
-needs a CUDA device and fails without one, and fails if a patch no longer
-applies to the sources.
+dz and du; y and dx; h, y and dx) and the share of them that are not
+bit-equal. Prints the card's name and power limit, then one JSON line per
+shape. It needs a CUDA device and fails without one, and fails if a patch
+no longer applies to the sources.
 
 Each variant undoes one choice of the design (see the note at the top of
 resblock.cu):
 - `one_tile_a_block`: a block for every tile (grid = tiles, not
-  min(tiles, SMs)), so no epilogue overlaps the next tile's loads;
+  min(tiles, SMs)), so no epilogue overlaps the next tile's loads (modes
+  3, 4, 6 and 7);
 - `exact_sigmoid`: expf and an IEEE divide in the SiLU and silu';
 - `threads_288`: one producer warp and no setmaxnreg (168 registers a
   thread);
 - `z_load_at_kblock_0`: mode 4 loads z right after the first k-block;
 - `aux_from_registers`: the second tile (mode 3's z, mode 4's du) stored
   from the registers straight to device memory, bf16 pairs, with no second
-  pass through the output tile and no wait for the first store's read.
+  pass through the output tile and no wait for the first store's read;
+- `stream_registers` (modes 6 and 7): the other design of the fp32
+  stream, with no pass through shared memory: a 4-stage ring (no output
+  tile), the row's stream asked for in L2 by TMA half a main loop ahead,
+  then read with `__ldg` and the sum stored straight from the registers
+  (float2 a lane, one pixel's 32 bytes a quad of lanes);
+- `stream_halves` (modes 6 and 7): the stream in two parts of 128 channels
+  (32 KB), one at a time in the row, so the second part's load waits for
+  the first part's store;
+- `stream_eighths` (modes 6 and 7): parts of 32 channels (8 KB), four in
+  the row at a time;
+- `stream_prefetch_l2` (modes 6 and 7): the parts after the first two are
+  asked for in L2 by TMA (`cp.async.bulk.prefetch.tensor`) when the first
+  two are loaded.
 
 One more variant measures the skeleton for the modes it does not run:
 `persistent_125` launches modes 1, 2 and 5 on the persistent kernel too,
@@ -55,11 +69,13 @@ OUT = os.path.join(REPO, "build", "conv_bf16_variants")
 SHAPES = ((64, 64, 64, 256), (8, 64, 64, 256))
 VARIANTS = ("one_tile_a_block", "exact_sigmoid", "threads_288", "z_load_at_kblock_0",
             "aux_from_registers")
+STREAM_VARIANTS = ("stream_registers", "stream_halves", "stream_eighths", "stream_prefetch_l2")
 MODES_125 = "persistent_125"
 
 EPILOGUE_FIRST = "    // first tile: mode 3 z = acc + bias; mode 4 dz = du (scale + 1), and du\n"
 EPILOGUE_LAST = "  if (leader) bulk_wait_read();  // shared memory outlives the last stores' reads\n"
 REGISTERS_EPILOGUE = r'''    // the second tile from the registers; the first through the output tile
+    __nv_bfloat16* aux_ptr = reinterpret_cast<__nv_bfloat16*>(out_f32);
     const int h = h0 + row;
     const long long row_base = (static_cast<long long>(b) * H + h) * W;
 #pragma unroll
@@ -139,6 +155,84 @@ ONE_PASS_EPILOGUE = r'''    if constexpr (!writes_aux_tile(MODE)) {  // modes 1,
 '''
 
 
+STREAM_PRELOAD = r"""      if (on_f32_stream(MODE) && kb == kResLoadKb && leader) {
+        // the stream's first parts into the row's slots, once the last
+        // tile's stores have read them
+        bulk_wait_read();
+        for (int p = 0; p < min(parts, kStreamSlots); ++p) {
+          unsigned char* slot = epi + p * kStreamBoxes * kBoxBytes;
+          mbar_arrive_expect_tx(&res_ready[p], kStreamBoxes * kBoxBytes);
+          for (int i = 0; i < kStreamBoxes; ++i)
+            tma_load_4d(slot + i * kBoxBytes, &map_res, &res_ready[p],
+                        n0 + p * kStreamCh + i * 32, w0, h0 + row, b);
+        }
+      }
+"""
+PREFETCH_HELPER = r"""// This thread asks for the (32 fp32 c, 64 w, 1 h, 1 b) box at (c0, c1, c2,
+// c3) of `map` in L2, without waiting and without shared memory.
+__device__ __forceinline__ void tma_prefetch_l2_4d(const CUtensorMap* map, int c0, int c1, int c2,
+                                                   int c3) {
+  asm volatile(
+      "cp.async.bulk.prefetch.tensor.4d.L2.global.tile [%0, {%1, %2, %3, %4}];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+"""
+SMEM_BASE = """  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+"""
+PREFETCH_AT = "// The k-block at which mode 4 starts the TMA load"
+PRELOAD_PREFETCH = r"""        for (int p = kStreamSlots; p < parts; ++p)
+          for (int i = 0; i < kStreamBoxes; ++i)
+            tma_prefetch_l2_4d(&map_res, n0 + p * kStreamCh + i * 32, w0, h0 + row, b);
+      }
+"""
+STREAM_FIRST = "    if constexpr (on_f32_stream(MODE)) {\n      // y = fp32(bf16((acc + bias) 0.1))"
+STREAM_LAST = "      continue;\n    }\n"
+REGISTERS_PREFETCH = r"""      if (on_f32_stream(MODE) && kb == kblocks / 2 && leader) {
+        // this row's fp32 stream into L2, half a main loop before the
+        // epilogue reads it
+        for (int j = 0; j < min(BN, C - n0) / 32; ++j)
+          tma_prefetch_l2_4d(&map_res, n0 + j * 32, w0, h0 + row, b);
+      }
+"""
+REGISTERS_STREAM_EPILOGUE = r"""    if constexpr (on_f32_stream(MODE)) {
+      // y = fp32(bf16((acc + bias) 0.1)) + x or dx = fp32(bf16(acc)) + g:
+      // the fp32 stream from L2 and the sum straight from the registers to
+      // device memory. A quad of lanes reads and writes one pixel's 32
+      // contiguous bytes, a whole sector; pixels and channels outside the
+      // tensor are skipped.
+      const int h = h0 + row;
+      if (h < H) {
+        const long long row_base = (static_cast<long long>(b) * H + h) * W;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int w = w0 + w_lo + 8 * half;
+          if (w >= W) continue;
+          const long long pix = (row_base + w) * C + n0;
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j) {
+            const int n = j * 8 + q * 2;
+            if (n0 + n >= C) continue;
+            float v0 = acc[4 * j + 2 * half], v1 = acc[4 * j + 2 * half + 1];
+            if constexpr (MODE == kModeConv2F32) {
+              v0 = (v0 + p_bias[n]) * 0.1f;
+              v1 = (v1 + p_bias[n + 1]) * 0.1f;
+            }
+            const float2 r = __ldg(reinterpret_cast<const float2*>(res_f32 + pix + n));
+            *reinterpret_cast<float2*>(out_f32 + pix + n) =
+                make_float2(round_bf16(v0) + r.x, round_bf16(v1) + r.y);
+          }
+        }
+      }
+      warpgroup_sync(row);  // every read of the bias slots before the next tile's writes
+      continue;
+    }
+"""
+
+
 def _replace(text, old, new, what):
     if old not in text:
         raise SystemExit(f"conv_bf16_variants.py: the patch '{what}' no longer applies")
@@ -166,39 +260,46 @@ def patched(name, cu):
         return _replace(cu, "constexpr int kResLoadKb = 2;", "constexpr int kResLoadKb = 0;",
                         name)
     if name == MODES_125:
-        cu = _replace(cu, '  static_assert(MODE == kModeConv1Z || MODE == kModeDgrad2, '
-                          '"the second-tile modes");\n', "", name)
-        cu = _replace(cu, "pv[0][i] = in_c && MODE == kModeConv1Z ?",
-                      "pv[0][i] = in_c && reads_bias(MODE) ?", name)
+        cu = _replace(cu, "  static_assert(writes_aux_tile(MODE) || on_f32_stream(MODE),\n"
+                          '                "the second-tile and fp32-stream modes");\n', "", name)
         cu = _replace(cu, "if (MODE == kModeDgrad2 && kb == kResLoadKb && leader) {",
                       "if (reads_res_tile(MODE) && kb == kResLoadKb && leader) {", name)
         cu = _replace(cu, "if (MODE == kModeConv1Z && leader) bulk_wait_read();",
                       "if (!reads_res_tile(MODE) && leader) bulk_wait_read();", name)
-        cu = _replace(cu, "    if (MODE == kModeDgrad2) {\n      mbar_wait(&res_ready[row], phase);",
-                      "    if (reads_res_tile(MODE)) {\n      mbar_wait(&res_ready[row], phase);",
-                      name)
+        cu = _replace(cu, "    if (MODE == kModeDgrad2) {\n      mbar_wait(&res_ready[0],",
+                      "    if (reads_res_tile(MODE)) {\n      mbar_wait(&res_ready[0],", name)
         cu = _replace(cu, EPILOGUE_FIRST, ONE_PASS_EPILOGUE + EPILOGUE_FIRST, name)
         for mode in ("kModeConv1", "kModeConv2", "kModeDgrad1"):
             cu = _replace(cu, f"&launch_bf16<{mode}>,", f"&launch_bf16_persistent<{mode}>,", name)
         return cu
     if name == "aux_from_registers":
-        cu = _replace(cu, "                                   const __nv_bfloat16* __restrict__ "
-                          "shift, long long ss_stride,\n                                   int B,",
-                      "                                   const __nv_bfloat16* __restrict__ "
-                      "shift, long long ss_stride,\n                                   "
-                      "__nv_bfloat16* __restrict__ aux_ptr, int B,", name)
-        cu = _replace(cu, "const void* shift, long long ss_stride, const void*, void*,",
-                      "const void* shift, long long ss_stride, const void*, void* aux_ptr,", name)
-        cu = _replace(cu, "static_cast<const __nv_bfloat16*>(shift), ss_stride, B, H, W, C);",
-                      "static_cast<const __nv_bfloat16*>(shift), ss_stride,\n"
-                      "                     static_cast<__nv_bfloat16*>(aux_ptr), B, H, W, C);",
-                      name)
         # modes 3 and 4 get aux where the fp32-stream modes get their output
         cu = _replace(cu, "f32_stream ? out : nullptr, B, H, W, C,",
                       "f32_stream ? out : aux, B, H, W, C,", name)
         i0 = cu.index(EPILOGUE_FIRST)
         i1 = cu.index(EPILOGUE_LAST, i0)
         return cu[:i0] + REGISTERS_EPILOGUE + cu[i1:]
+    if name == "stream_prefetch_l2":
+        cu = _replace(cu, PREFETCH_AT, PREFETCH_HELPER + PREFETCH_AT, name)
+        return _replace(cu, STREAM_PRELOAD, STREAM_PRELOAD[:-len("      }\n")] + PRELOAD_PREFETCH,
+                        name)
+    if name in ("stream_halves", "stream_eighths"):
+        return _replace(cu, "constexpr int kStreamCh = 64;",
+                        f"constexpr int kStreamCh = {128 if name == 'stream_halves' else 32};",
+                        name)
+    if name == "stream_registers":
+        # 4 stages in modes 6 and 7, over the output tile they no longer use
+        cu = _replace(cu, "  constexpr int S = kStages;\n" + SMEM_BASE + "  uint64_t* full = "
+                      "reinterpret_cast<uint64_t*>(smem + kPBars);",
+                      "  constexpr int S = on_f32_stream(MODE) ? 4 : kStages;\n" + SMEM_BASE +
+                      "  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kPBars);", name)
+        cu = _replace(cu, "kPBars + (2 * kStages + kTileH * kStreamSlots) * 8",
+                      "kPBars + (2 * 4 + kTileH * kStreamSlots) * 8", name)
+        cu = _replace(cu, PREFETCH_AT, PREFETCH_HELPER + PREFETCH_AT, name)
+        cu = _replace(cu, STREAM_PRELOAD, REGISTERS_PREFETCH, name)
+        i0 = cu.index(STREAM_FIRST)
+        i1 = cu.index(STREAM_LAST, i0) + len(STREAM_LAST)
+        return cu[:i0] + REGISTERS_STREAM_EPILOGUE + cu[i1:]
     raise ValueError(name)
 
 
@@ -260,7 +361,7 @@ def main():
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    libs, ptxas = build((*VARIANTS, MODES_125))
+    libs, ptxas = build((*VARIANTS, *STREAM_VARIANTS, MODES_125))
     fns = {name: entry(lib) for name, lib in libs.items()}
     print(json.dumps({"card": card, "ptxas": ptxas}), flush=True)
     dev = torch.device("cuda")
@@ -276,11 +377,15 @@ def main():
         scale, shift = (torch.randn(b, 2 * c, generator=g, device=dev) * 0.5).to(bf).chunk(2, -1)
         wp, wt = prepare_weight(kernel), prepare_weight(transpose_kernel(kernel))
         y2, dx5 = torch.empty_like(x), torch.empty_like(x)
+        res32 = torch.randn(shape, generator=g, device=dev) * 0.5  # the fp32 stream
+        y6, dx7 = torch.empty_like(res32), torch.empty_like(res32)
         # mode: (src, weight, bias, res, out, aux)
         args_of = {1: (x, wp, bias, None, hid, None), 2: (hid, wp, bias, x, y2, None),
                    3: (x, wp, bias, None, hid, z), 4: (gy, wt, scale, z, dz, du),
-                   5: (dz, wt, scale, gy, dx5, None)}
-        modes_of = {"kernel": (1, 2, 3, 4, 5), **{v: (3, 4) for v in VARIANTS},
+                   5: (dz, wt, scale, gy, dx5, None), 6: (hid, wp, bias, res32, y6, None),
+                   7: (dz, wt, scale, res32, dx7, None)}
+        modes_of = {"kernel": (1, 2, 3, 4, 5, 6, 7), **{v: (3, 4) for v in VARIANTS},
+                    "one_tile_a_block": (3, 4, 6, 7), **{v: (6, 7) for v in STREAM_VARIANTS},
                     MODES_125: (1, 2, 5)}
 
         def call(lib, mode):
@@ -292,23 +397,25 @@ def main():
                 f"{lib} mode {mode}")
 
         def outputs(lib, modes):
-            """The outputs of `modes` in order, from fixed z and dz."""
+            """The outputs of `modes` in order, from fixed z, dz and h."""
             z.copy_(z0)
             dz.copy_(dz0)
+            hid.copy_(hid0)
             got = {}
             for mode in modes:
                 call(lib, mode)
                 got.update({1: {"h": hid}, 2: {"y": y2}, 3: {"h": hid, "z": z},
-                            4: {"dz": dz, "du": du}, 5: {"dx": dx5}}[mode])
+                            4: {"dz": dz, "du": du}, 5: {"dx": dx5}, 6: {"y6": y6},
+                            7: {"dx7": dx7}}[mode])
                 got = {k: t.clone() for k, t in got.items()}
             return got
 
-        z0, dz0 = z.clone(), dz.clone()
-        want = {m: outputs("kernel", m) for m in ((3, 4), (1, 2, 5))}
+        z0, dz0, hid0 = z.clone(), dz.clone(), hid.clone()
+        want = {m: outputs("kernel", m) for m in set(modes_of.values())}
         row = {"shape": shape, "card": card, "kernel": {}}
         for lib, modes in modes_of.items():
             if lib != "kernel":
-                got, ref = outputs(lib, modes), want[(3, 4) if 3 in modes else (1, 2, 5)]
+                got, ref = outputs(lib, modes), want[modes]
                 row[lib] = {"against_kernel": {
                     n: {"max_abs": (a.float() - ref[n].float()).abs().max().item(),
                         "share_not_bit_equal": (a != ref[n]).float().mean().item()}
@@ -327,6 +434,7 @@ def main():
                     row[lib][f"mode{mode}_ms"].append(timed(lib, mode))
         print(json.dumps(row), flush=True)
         del x, gy, z, hid, dz, du, out, y2, dx5, kernel, bias, scale, shift, wp, wt, want
+        del res32, y6, dx7
 
 
 if __name__ == "__main__":

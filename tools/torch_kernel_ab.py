@@ -18,13 +18,13 @@ power limit and, at the main path's shapes:
   (64,64,64,256): CUDA-event ms and profiler device ms, and beside it
   cuDNN's bf16 weight gradient of the same inputs (chip_smoke.py's
   `library_wgrad`), which the port never calls;
-- the bf16 conv's epilogue modes 1-5 alone at the training batch
+- the bf16 conv's epilogue modes 1-7 alone at the training batch
   (64,64,64,256), each through the C entry `hicdiff_conv3x3_bf16` as
-  chip_smoke.py's `conv_modes_bf16` calls it, in two passes (modes 1 to 5,
-  then 5 to 1), each mode's loop beside nvidia-smi's SM clock readings
+  chip_smoke.py's `conv_modes_bf16` calls it, in two passes (modes 1 to 7,
+  then 7 to 1), each mode's loop beside nvidia-smi's SM clock readings
   (chip_smoke.py's `card_clocks`): CUDA-event ms of each pass, their mean,
   and its share of the 0.3127 ms bound of one conv (2 B H W C 9C FLOPs at
-  989 TFLOP/s);
+  989 TFLOP/s); modes 6 and 7 read the fp32 stream and write fp32;
 - one bf16 `-u 0` training step of the full-width backbone (32 blocks, 256
   features, batch 64) through the port's Trainer: the loss's forward, the
   backward and the update by the trainer's CUDA events (the median of 5
@@ -32,6 +32,9 @@ power limit and, at the main path's shapes:
   `card_clocks`), then 3 steps under torch.profiler: the device time of
   each kernel (name and template argument) and its share of the steps'
   device time;
+- the same step of bf16 `hicedrn_att` (its 30 blocks after the first
+  attention on the fp32 stream: modes 6 and 7), and its forward alone at
+  batch 64 under no_grad (CUDA-event ms, median of 3 runs of 3);
 - a served bf16 `-u 0` request: a bf16 DenoiseService at full width (the
   30-step truncated chain at sigma 0.1, batch 8), the host-clock latency of
   `denoise_patches` on 8 patches, one request untimed, then 3 timed. It runs
@@ -66,7 +69,7 @@ def _smoke():
 
 
 def conv_modes(smoke, dev):
-    """Modes 1-5 of the bf16 conv at (64,64,64,256) through the C entry (not
+    """Modes 1-7 of the bf16 conv at (64,64,64,256) through the C entry (not
     counted: no main-path launch): ms and share of one conv's bound."""
     from hicdiff_tpu_torch.kernels.resblock import prepare_weight, transpose_kernel
 
@@ -75,6 +78,7 @@ def conv_modes(smoke, dev):
     g = torch.Generator(device=dev).manual_seed(12)
     x, gy, z, hid, dz, out, du = (torch.randn(shape, generator=g, device=dev).to(bf)
                                   for _ in range(7))
+    stream, out32 = (torch.randn(shape, generator=g, device=dev) for _ in range(2))
     kernel = (torch.randn(3, 3, c, c, generator=g, device=dev) / (9 * c) ** 0.5).to(bf)
     bias = (torch.randn(c, generator=g, device=dev) * 0.05).to(bf)
     scale, shift = (torch.randn(b, 2 * c, generator=g, device=dev) * 0.5).to(bf).chunk(2, dim=-1)
@@ -83,9 +87,10 @@ def conv_modes(smoke, dev):
     # mode: (src, weight, bias, res, out, aux)
     launches = {1: (x, wp, bias, None, hid, None), 2: (hid, wp, bias, x, out, None),
                 3: (x, wp, bias, None, hid, z), 4: (gy, wt, scale, z, dz, du),
-                5: (dz, wt, scale, gy, out, None)}
+                5: (dz, wt, scale, gy, out, None), 6: (hid, wp, bias, stream, out32, None),
+                7: (dz, wt, scale, stream, out32, None)}
     rows = {f"mode{m}": {"ms_passes": [], "sm_clock_mhz": []} for m in launches}
-    for order in ((1, 2, 3, 4, 5), (5, 4, 3, 2, 1)):
+    for order in ((1, 2, 3, 4, 5, 6, 7), (7, 6, 5, 4, 3, 2, 1)):
         for mode in order:
             src, wgt, bia, res, dst, aux = launches[mode]
             clocks = {}
@@ -121,15 +126,15 @@ def serve_bf16(dev):
     return latencies
 
 
-def train_step_bf16(smoke, dev):
-    """One bf16 -u 0 step at full width and batch 64: its split by the
-    trainer's CUDA events, and the device time of each kernel over 3
-    profiled steps."""
+def train_step_bf16(smoke, dev, variant="base"):
+    """One bf16 -u 0 step of the backbone `variant` (base or att) at full
+    width and batch 64: its split by the trainer's CUDA events, and the
+    device time of each kernel over 3 profiled steps."""
     from hicdiff_tpu_torch.diffusion.gaussian import GaussianDiffusion
     from hicdiff_tpu_torch.models.hicedrn import HicedrnDiff
     from hicdiff_tpu_torch.train.trainer import Trainer, step_generator
 
-    model = HicedrnDiff(self_condition=True, number_resnet=32, features=256,
+    model = HicedrnDiff(self_condition=True, number_resnet=32, features=256, variant=variant,
                         dtype=torch.bfloat16, device=dev,
                         generator=torch.Generator().manual_seed(0))
     engine = GaussianDiffusion.create(model, device=dev, timesteps=1000,
@@ -169,6 +174,21 @@ def train_step_bf16(smoke, dev):
         "device_ms": busy,
         "by_kernel": {k: {**v, "share": v["ms"] / busy} for k, v in top}}
     return split
+
+
+def att_forward_bf16(smoke, dev):
+    """CUDA-event ms of one bf16 hicedrn_att forward at full width and batch
+    64 under no_grad."""
+    from hicdiff_tpu_torch.models.hicedrn import HicedrnDiff
+
+    model = HicedrnDiff(self_condition=True, number_resnet=32, features=256, variant="att",
+                        dtype=torch.bfloat16, device=dev,
+                        generator=torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(2)
+    x, cond = (torch.randn(64, 64, 64, 1, generator=g).mul(0.3).to(dev) for _ in range(2))
+    t_in = torch.randint(0, 1000, (64,), generator=g).to(dev)
+    with torch.no_grad():
+        return smoke.cuda_ms(lambda: model(x, t_in, cond), iters=3)
 
 
 def main():
@@ -232,6 +252,8 @@ def main():
         del xw, dz, hw, gw
     row["conv_bf16_modes_b64"] = conv_modes(smoke, dev)
     row["train_bf16_step"] = train_step_bf16(smoke, dev)
+    row["train_bf16_att_step"] = train_step_bf16(smoke, dev, variant="att")
+    row["att_bf16_forward_b64_ms"] = att_forward_bf16(smoke, dev)
     row["serve_bf16_latency_s"] = serve_bf16(dev)
     print(json.dumps(row), flush=True)
 
