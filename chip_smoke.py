@@ -144,6 +144,24 @@ computeInsulation on the card to the CPU. `stard_metric_cond` and
 chain cut to --timestep 20, each once under the profiler, with the launch
 counters checked.
 
+Phase 14, `fullscale_fixture`: the full-scale quality protocol's tools at
+reduced bins. tools/torch_make_fullscale_fixture.py (seed 7, band 257, 22
+chromosomes of 512 bins) writes the contact lists, latents and weights;
+the bf16 -u 0 CLI runs `--sampling-steps 1` on a seeded full-width
+checkpoint over the 120 test patches (one conv pair a block a batch, no
+posterior step); tools/torch_latent_target.py builds `latent.npy` (the
+target's shape, correlation with it above 0.9) and
+tools/torch_quartet_metrics.py scores prediction, identity and realized
+target against it (every metric finite). Phase 15, `engine_options`: on a
+full-width hicedrn of 2 blocks at batch 8, each objective (pred_noise l2,
+pred_x0 and pred_v l1, p2 gamma 0.5) holds its loss (1e-5 relative) and
+gradients (BWD_TOL) to the CPU, a truncated DDIM chain with the x0 clip
+off returns every state (1e-4 of the largest), and the 30-step ancestral
+chain launches the posterior step once a step under pred_noise and never
+under pred_x0 or pred_v; then Unet1D, VAEModel and a learned-embedding Unet
+forward on the card within 1e-3 of the CPU's largest value, with no port
+kernel launched.
+
 Times: `ms`, `plain_ms` and `library_ms` are CUDA-event times of back-to-back
 calls (device time plus any gaps where the device waits for the host);
 `device_ms` and its kin are the summed device durations from torch.profiler.
@@ -215,6 +233,8 @@ BWD_TOL = 1e-4  # backward kernels vs the plain twin, of each gradient's largest
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, "tf32": 495e12}
 HBM_BYTES_PER_S = 3.35e12
 CONV_KERNELS = ("conv3x3_bf16_kernel", "conv3x3_bf16_persistent_kernel", "conv3x3_3xtf32_kernel")
+FULLSCALE_BINS, FULLSCALE_BAND = 512, 257  # the fullscale_fixture phase: 22 chromosomes of 512 bins
+ENGINE_BLOCKS, ENGINE_BATCH = 2, 8          # engine_options: a full-width hicedrn of 2 blocks
 
 
 def phase(name, t0, **fields):
@@ -2959,6 +2979,196 @@ def analysis_tail(dev, card, quartet, quartet_name):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def fullscale_fixture(dev, card):
+    """Phase 14: the full-scale protocol's tools at reduced bins. The port's
+    fixture generator (tools/torch_make_fullscale_fixture.py: seed 7, band
+    257, 22 chromosomes of 512 bins) writes the contact lists into the
+    trainer's `_p99.99` cache with the latents and weights; the data module
+    prepares from them; the bf16 -u 0 CLI runs `--sampling-steps 1` over the
+    test split on a seeded full-width checkpoint trained at 99.99; then
+    tools/torch_latent_target.py and tools/torch_quartet_metrics.py score
+    the prediction, the identity row and the realized target against the
+    latent. Returns the CLI's launch counts."""
+    import inference_torch
+    from hicdiff_tpu_torch.convert import params_to_jax
+    from hicdiff_tpu_torch.kernels.resblock import fused_resblock
+    from hicdiff_tpu_torch.kernels.sample_step import fused_posterior_step
+    from hicdiff_tpu_torch.models.hicedrn import HicedrnDiff
+    from hicdiff_tpu_torch.train.checkpoint import save_checkpoint
+    from tools.torch_latent_target import build_latent_npy
+    from tools.torch_make_fullscale_fixture import constraints_dir, make_fullscale
+    from tools.torch_quartet_metrics import score_quartet
+
+    t0 = time.time()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="smoke_fullscale_", dir=os.path.join(ROOT, "build"))
+    try:
+        latent_dir = os.path.join(root, "latent")
+        n_bins, n_pixels = make_fullscale(constraints_dir(root, SIGMA, 99.99), seed=7,
+                                          bins_per_chrom=[FULLSCALE_BINS] * 22,
+                                          latent_dir=latent_dir, band=FULLSCALE_BAND)
+        fixture_s = time.time() - t0
+        model = HicedrnDiff(self_condition=True, number_resnet=BLOCKS, features=FEATURES,
+                            device="cpu", generator=torch.Generator().manual_seed(5))
+        ckpt = os.path.join(root, "Model_Weights", "random.msgpack")
+        save_checkpoint(ckpt, params_to_jax(model.state_dict()), run_config=dict(
+            sigma=SIGMA, schedule="sigmoid", mode="cond", timestep=1000, percentile=99.99))
+        del model
+        fused_resblock.launches = 0
+        fused_posterior_step.launches = 0
+        tr = time.time()
+        res = inference_torch.Inference(
+            batch_size=CLI_BATCH, sigma_t=SIGMA, condition=False, root=root, schedule="sigmoid",
+            timestep=1000, bf16=True, weights=ckpt, sampling_steps=1, t_start="auto",
+            blocks=BLOCKS, features=FEATURES, compute_metrics=False, device=dev)
+        torch.cuda.synchronize()
+        cli_s = time.time() - tr
+        launches = dict(resblock_launches=fused_resblock.launches,
+                        step_launches=fused_posterior_step.launches)
+        n = len(res["inds"])
+        batches = -(-n // CLI_BATCH)
+        check(res["data_dir"].endswith("_p99.99"), f"fullscale_fixture: cache {res['data_dir']}")
+        check(n == len(CLI_TEST_CHROMS) * 30, f"fullscale_fixture: {n} test patches")
+        # DDIM K=1: one forward a batch, no ancestral step
+        check(launches == dict(resblock_launches=batches * BLOCKS * 2, step_launches=0),
+              f"fullscale_fixture launches {launches}")
+        tr = time.time()
+        info = build_latent_npy(res["outdir"], res["data_dir"], latent_dir, percentile=99.99)
+        target = np.load(os.path.join(res["outdir"], "target.npy"))
+        latent = np.load(os.path.join(res["outdir"], "latent.npy"))
+        check(latent.shape == target.shape == (n, 1, 64, 64),
+              f"fullscale_fixture: latent {latent.shape} vs target {target.shape}")
+        check(info["corr_latent_target"] > 0.9, f"fullscale_fixture: {info}")
+        scores = {f"{p}_vs_latent": score_quartet(res["outdir"], p, target_file="latent.npy")
+                  for p in ("predict", "noisy", "target")}
+        check(all(np.isfinite(v) for s in scores.values() for v in s.values()),
+              f"fullscale_fixture scores: {scores}")
+        phase("fullscale_fixture", t0, bins=n_bins, pixels=n_pixels, band=FULLSCALE_BAND,
+              seed=7, fixture_s=fixture_s, cli_s=cli_s, score_s=time.time() - tr, patches=n,
+              dtype="bfloat16", sampling_steps=1, **launches,
+              corr_latent_target=info["corr_latent_target"], speckle_rms=info["speckle_rms"],
+              scores={k: {m: v[m] for m in ("pas_ssim", "pas_psnr", "pas_pcc")}
+                      for k, v in scores.items()},
+              cut=f"data scale only: {FULLSCALE_BINS} bins a chromosome of hg19's 1,203-6,232",
+              card=card)
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def engine_options(dev, card):
+    """Phase 15: the engine's options on the card against the plain run on
+    the CPU, on one full-width (256-feature) HicedrnDiff of ENGINE_BLOCKS
+    blocks at batch ENGINE_BATCH: each objective's p_losses (l2 for
+    pred_noise, l1 for the others; p2 gamma 0.5, k 2) with its backward (the
+    loss 1e-5 relative, each gradient within BWD_TOL of its largest value),
+    a truncated DDIM chain (K = 3) with the x0 clip off returning every
+    state, the truncated ancestral chain's launches (the posterior step
+    once a step under pred_noise only, as gaussian.py:312 fuses it), then
+    the Unet1D, VAEModel and learned-embedding Unet forwards (no port
+    kernel may launch in them) within 1e-3 of the largest value. Returns
+    the ancestral chains' launch counts by objective."""
+    from hicdiff_tpu_torch.diffusion.gaussian import GaussianDiffusion
+    from hicdiff_tpu_torch.kernels.resblock import fused_resblock
+    from hicdiff_tpu_torch.kernels.sample_step import fused_posterior_step
+    from hicdiff_tpu_torch.models.hicedrn import HicedrnDiff
+    from hicdiff_tpu_torch.models.unet import Unet
+    from hicdiff_tpu_torch.models.unet1d import Unet1D
+    from hicdiff_tpu_torch.models.vae import VAEModel
+
+    t0 = time.time()
+    cpu_model = HicedrnDiff(self_condition=True, number_resnet=ENGINE_BLOCKS, features=FEATURES,
+                            device="cpu", generator=torch.Generator().manual_seed(9))
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    g = torch.Generator().manual_seed(10)
+    shape = (ENGINE_BATCH, 64, 64, 1)
+    cond = torch.randn(shape, generator=g).clamp(-1, 1)
+    target = torch.randn(shape, generator=g).clamp(-1, 1)
+    t = torch.randint(0, 1000, (ENGINE_BATCH,), generator=g)
+    noise = torch.randn(shape, generator=g)
+    t_start = 29
+    rows, launches = {}, {}
+    for objective in ("pred_noise", "pred_x0", "pred_v"):
+        kw = dict(timesteps=1000, beta_schedule="sigmoid", mode="cond", objective=objective,
+                  loss_type="l2" if objective == "pred_noise" else "l1",
+                  p2_loss_weight_gamma=0.5, p2_loss_weight_k=2.0)
+        engines = {d: GaussianDiffusion.create(m, device=d, **kw)
+                   for d, m in (("cpu", cpu_model), (dev, card_model))}
+        losses, grads = {}, {}
+        for d, eng in engines.items():
+            eng.model.zero_grad(set_to_none=True)
+            loss = eng.p_losses(cond.to(d), target.to(d), t=t, noise=noise)
+            loss.backward()
+            losses[d] = loss.item()
+            grads[d] = {n: p.grad.detach().cpu() for n, p in eng.model.named_parameters()}
+        loss_err = abs(losses[dev] - losses["cpu"]) / abs(losses["cpu"])
+        check(loss_err <= 1e-5, f"engine_options {objective}: loss {losses}")
+        grad_err = max(((grads[dev][n] - w).abs().max() / w.abs().max()).item()
+                       for n, w in grads["cpu"].items())
+        check(grad_err <= BWD_TOL, f"engine_options {objective}: gradient error {grad_err}")
+        with torch.no_grad():
+            states = {}
+            for d, eng in engines.items():
+                eng = dataclasses.replace(eng, t_start=t_start, sampling_timesteps=3,
+                                          ddim_clip_x_start=False)
+                states[d] = eng.super_resolution(cond.to(d), torch.Generator().manual_seed(0),
+                                                 return_all_timesteps=True).cpu()
+            check(states["cpu"].shape == (4, *shape), f"engine_options: {states['cpu'].shape}")
+            ddim_err = ((states[dev] - states["cpu"]).abs().max()
+                        / states["cpu"].abs().max()).item()
+            check(ddim_err <= 1e-4, f"engine_options {objective}: DDIM states error {ddim_err}")
+            fused_resblock.launches = 0
+            fused_posterior_step.launches = 0
+            tr = time.time()
+            out = dataclasses.replace(engines[dev], t_start=t_start).p_sample_loop(
+                cond.to(dev), torch.Generator().manual_seed(1))
+            torch.cuda.synchronize()
+            chain_s = time.time() - tr
+        steps = t_start + 1
+        launches[objective] = dict(resblock_launches=fused_resblock.launches,
+                                   step_launches=fused_posterior_step.launches)
+        want = dict(resblock_launches=steps * ENGINE_BLOCKS * 2,
+                    step_launches=steps if objective == "pred_noise" else 0)
+        check(launches[objective] == want,
+              f"engine_options {objective} chain launches {launches[objective]} != {want}")
+        check(bool(torch.isfinite(out).all()), f"engine_options {objective}: chain not finite")
+        rows[objective] = dict(loss_type=kw["loss_type"], loss_rel_err=loss_err,
+                               grad_err_of_largest=grad_err, ddim_states_err_of_largest=ddim_err,
+                               chain_s=chain_s, **launches[objective])
+    del card_model
+    forwards = {}
+    before = _port_kernel_launches()
+    g = torch.Generator().manual_seed(11)
+    for name, make, inputs in (
+        ("Unet1D", lambda d, gen: Unet1D(dim=64, device=d, generator=gen),
+         (torch.randn(ENGINE_BATCH, 256, 1, generator=g), torch.randint(0, 1000, (ENGINE_BATCH,),
+                                                                       generator=g))),
+        ("VAEModel", lambda d, gen: VAEModel(device=d, generator=gen),
+         (torch.randn(shape, generator=g).tanh(), None, torch.randn(ENGINE_BATCH, 128,
+                                                                    generator=g))),
+        ("Unet_learned_sinusoidal", lambda d, gen: Unet(
+            dim=64, self_condition=True, learned_sinusoidal_cond=True, device=d, generator=gen),
+         (torch.randn(shape, generator=g), torch.randint(0, 1000, (ENGINE_BATCH,), generator=g),
+          cond)),
+    ):
+        cpu = make("cpu", torch.Generator().manual_seed(12))
+        card_m = copy.deepcopy(cpu).to(dev)
+        with torch.no_grad():
+            want = cpu(*inputs)
+            got = card_m(*(a.to(dev) if isinstance(a, torch.Tensor) else a for a in inputs))
+            want = want[0] if isinstance(want, tuple) else want
+            got = (got[0] if isinstance(got, tuple) else got).cpu()
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        check(err <= 1e-3, f"engine_options {name}: forward error {err}")
+        forwards[name] = dict(shape=list(got.shape), err_of_largest=err)
+        del card_m
+    check(_port_kernel_launches() == before, "engine_options: a port kernel ran in the zoo forwards")
+    phase("engine_options", t0, blocks=ENGINE_BLOCKS, features=FEATURES, batch=ENGINE_BATCH,
+          t_start=t_start, tol_grad_of_largest=BWD_TOL, objectives=rows, forwards=forwards,
+          card=card)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -3264,6 +3474,11 @@ def main():
     # phase's quartet and in baseline mode, insulation, the stard_metric scripts
     scripts = analysis_tail(dev, card, cli["quartet"], cli["quartet_name"])
 
+    # ---- 14. the full-scale protocol's fixture, latent target and scoring at
+    # reduced bins; 15. the engine's objectives, DDIM options and the 7b models
+    fullscale = fullscale_fixture(dev, card)
+    options = engine_options(dev, card)
+
     r32, r16 = resblock[torch.float32], resblock[torch.bfloat16]
     kernels = [
         {"name": "fused_resblock", "route": "cuda",
@@ -3289,7 +3504,10 @@ def main():
          "launches_per_forward_zoo": zoo_counts["forward"],
          "launches_cli_zoo": {k: v["resblock_launches"] for k, v in zoo_cli.items()},
          "launches_pretrain_zoo": {k: v["fused_resblock"] for k, v in zoo_pre.items()},
-         "launches_stard_metric": {k: v["resblock_launches"] for k, v in scripts.items()}},
+         "launches_stard_metric": {k: v["resblock_launches"] for k, v in scripts.items()},
+         "launches_fullscale_cli_k1": fullscale["resblock_launches"],
+         "launches_engine_options_chain": {k: v["resblock_launches"]
+                                           for k, v in options.items()}},
         {"name": "fused_posterior_step", "route": "cuda",
          "source": "hicdiff_tpu_torch/csrc/sample_step.cu",
          "replaces": "hicdiff_tpu/kernels/sample_step.py:65",
@@ -3301,7 +3519,9 @@ def main():
          "launches_reference_weights_cli": cli["refw_step_launches"],
          "launches_ddrm_cli": cli_ddrm["step_launches"],
          "launches_cli_zoo": {k: v["step_launches"] for k, v in zoo_cli.items()},
-         "launches_stard_metric": {k: v["step_launches"] for k, v in scripts.items()}},
+         "launches_stard_metric": {k: v["step_launches"] for k, v in scripts.items()},
+         "launches_fullscale_cli_k1": fullscale["step_launches"],
+         "launches_engine_options_chain": {k: v["step_launches"] for k, v in options.items()}},
     ]
     # the backward (and the training forward): port-only kernels, no Pallas kernel to replace
     sources = {"fused_resblock_dgrad": "hicdiff_tpu_torch/csrc/resblock.cu",

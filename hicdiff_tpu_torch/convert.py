@@ -9,11 +9,14 @@ channel-LayerNorm scales take the reference's (1, C, 1, 1) shape. The base
 HicedrnDiff's map is that of tools/export_torch_checkpoint.py (flax
 `Conv2d_0` / `TimeMLP_0` / `HicedrnResBlock_{i}` -> the reference's `head` /
 `time_mlp.1` / `body.{i}.conv.proj`), carried here so the port imports
-neither `tools/` nor the JAX package; the att, sr3 and U-Net names are those
-of `models/hicedrn.py` and `models/unet.py`. Both directions pick the
-backbone from the tree's own keys and raise on a tree they do not know.
+neither `tools/` nor the JAX package; the att, sr3, U-Net and 1-D U-Net
+names are those of `models/hicedrn.py`, `models/unet.py` and
+`models/unet1d.py` (a U-Net with a learned time embedding adds its
+`time_mlp.0.weights`). Both directions pick the backbone from the tree's own
+keys and raise on a tree they do not know.
 
-The baselines (`models/baselines.py`, `HicedrnGenerator`, `VGGFeatures`)
+The baselines (`models/baselines.py`, `HicedrnGenerator`, `VGGFeatures`,
+and `models/vae.py`'s `VAEModel`)
 each have a table too, chosen by `model=` (the class name; their trees
 share module names, so the keys cannot tell them apart). Their flax paths
 are the JAX models' (`Conv2d_i` of the `Conv2d` wrapper, `Conv_i` and
@@ -52,6 +55,7 @@ __all__ = ["adam_state_from_jax", "adam_state_to_jax", "params_from_jax", "param
 # layer kinds: flax leaves under the entry's path <-> the port's parameters
 #   conv  {Conv_0: {kernel HWIO, bias?}}  <-> weight OIHW, bias?
 #   dense {Dense_0: {kernel (in, out), bias}} <-> weight (out, in), bias
+#   linear {kernel (in, out), bias} (flax nn.Dense) <-> weight (out, in), bias
 #   bare  {kernel HWIO, bias?} (WSConv2d, flax nn.Conv) <-> weight OIHW, bias?
 #   convt {kernel (kh, kw, in, out), bias?} (flax nn.ConvTranspose)
 #                                          <-> weight (in, out, kh, kw) flipped in space, bias?
@@ -59,6 +63,9 @@ __all__ = ["adam_state_from_jax", "adam_state_to_jax", "params_from_jax", "param
 #                                          <-> weight, bias + running_mean, running_var
 #   gn    {scale, bias} (GroupNorm)        <-> weight, bias
 #   g     {g (C,)} (ChannelLayerNorm)      <-> g (1, C, 1, 1)
+#   g1    {g (C,)} (the 1-D LayerNorm)     <-> g (1, C, 1)
+#   weights {weights (n,)} (LearnedSinusoidalPosEmb) <-> weights (n,)
+# A 1-D conv kernel (K, I, O) maps to the weight (O, I, K).
 
 
 def _hicedrn_layout(blocks: int, variant: str) -> list:
@@ -86,9 +93,11 @@ def _hicedrn_layout(blocks: int, variant: str) -> list:
     return layout + [(("Conv2d_1",), "body_tail", "conv"), (("Conv2d_2",), "tail", "conv")]
 
 
-def _unet_layout(levels: int, sr3: bool) -> list:
+def _unet_layout(levels: int, sr3: bool, learned: bool = False) -> list:
     resnet_ids, conv_ids, norm_ids, attn_ids = (itertools.count(s) for s in (0, 1, 0, 0))
     layout = [(("Conv2d_0",), "init_conv", "conv")]
+    if learned:
+        layout.append((("TimeMLP_0", "LearnedSinusoidalPosEmb_0"), "time_mlp.0", "weights"))
     if sr3:
         layout += [(("Dense_0",), "noise_level_mlp.1", "dense"),
                    (("Dense_1",), "noise_level_mlp.3", "dense")]
@@ -136,6 +145,53 @@ def _unet_layout(levels: int, sr3: bool) -> list:
     return layout
 
 
+def _unet1d_layout(levels: int) -> list:
+    resnet_ids, conv_ids, norm_ids, attn_ids = (itertools.count(s) for s in (0, 1, 0, 0))
+    layout = [(("Conv1d_0",), "init_conv", "conv"),
+              (("TimeMLP_0", "Dense_0"), "time_mlp.1", "dense"),
+              (("TimeMLP_0", "Dense_1"), "time_mlp.3", "dense")]
+
+    def resnet(name, res_conv):
+        f = f"_ResnetBlock1d_{next(resnet_ids)}"
+        layout.append(((f, "Dense_0"), f"{name}.mlp.1", "dense"))
+        for k in (0, 1):
+            layout.append(((f, f"_Block1d_{k}", "WSConv1d_0"), f"{name}.block{k + 1}.proj", "bare"))
+            layout.append(((f, f"_Block1d_{k}", "GroupNorm_0"), f"{name}.block{k + 1}.norm", "gn"))
+        if res_conv:
+            layout.append(((f, "Conv1d_0"), f"{name}.res_conv", "conv"))
+
+    def attention(name, linear):
+        layout.append(((f"_PreNormResidual1d_{next(norm_ids)}", "_LayerNorm1d_0"),
+                       f"{name}.fn.norm", "g1"))
+        a = f"_Attention1d_{next(attn_ids)}"
+        layout.append(((a, "Conv1d_0"), f"{name}.fn.fn.to_qkv", "conv"))
+        if linear:
+            layout.extend([((a, "Conv1d_1"), f"{name}.fn.fn.to_out.0", "conv"),
+                           ((a, "_LayerNorm1d_0"), f"{name}.fn.fn.to_out.1", "g1")])
+        else:
+            layout.append(((a, "Conv1d_1"), f"{name}.fn.fn.to_out", "conv"))
+
+    def resample(name):
+        layout.append(((f"Conv1d_{next(conv_ids)}",), name, "conv"))
+
+    for i in range(levels):
+        resnet(f"downs.{i}.0", False)
+        resnet(f"downs.{i}.1", False)
+        attention(f"downs.{i}.2", True)
+        resample(f"downs.{i}.3")
+    resnet("mid_block1", False)
+    attention("mid_attn", False)
+    resnet("mid_block2", False)
+    for i in range(levels):
+        resnet(f"ups.{i}.0", True)
+        resnet(f"ups.{i}.1", True)
+        attention(f"ups.{i}.2", True)
+        resample(f"ups.{i}.3" if i == levels - 1 else f"ups.{i}.3.1")
+    resnet("final_res_block", True)
+    resample("final_conv")
+    return layout
+
+
 def _count(present) -> int:
     return next(i for i in itertools.count() if not present(i))
 
@@ -143,20 +199,26 @@ def _count(present) -> int:
 def _layout_of_params(params: dict) -> list:
     if "UnetResnetBlock_0" in params:
         resnets = _count(lambda i: f"UnetResnetBlock_{i}" in params)
-        return _unet_layout((resnets - 3) // 4, sr3="TimeMLP_0" not in params)
+        return _unet_layout((resnets - 3) // 4, sr3="TimeMLP_0" not in params,
+                            learned="LearnedSinusoidalPosEmb_0" in params.get("TimeMLP_0", {}))
+    if "_ResnetBlock1d_0" in params:
+        return _unet1d_layout((_count(lambda i: f"_ResnetBlock1d_{i}" in params) - 3) // 4)
     if "SR3ResBlock_0" in params:
         return _hicedrn_layout(_count(lambda i: f"SR3ResBlock_{i}" in params), "sr3")
     if "HicedrnResBlock_0" in params:
         variant = "att" if "HicedrnLinearAttention_0" in params else "base"
         return _hicedrn_layout(_count(lambda i: f"HicedrnResBlock_{i}" in params), variant)
     raise ValueError("not a params tree of a known backbone (no HicedrnResBlock_0, "
-                     "SR3ResBlock_0 or UnetResnetBlock_0)")
+                     "SR3ResBlock_0, UnetResnetBlock_0 or _ResnetBlock1d_0)")
 
 
 def _layout_of_state_dict(state_dict: dict) -> list:
     if "init_conv.weight" in state_dict:
         levels = _count(lambda i: f"downs.{i}.0.mlp.1.weight" in state_dict)
-        return _unet_layout(levels, sr3="noise_level_mlp.1.weight" in state_dict)
+        if state_dict["init_conv.weight"].ndim == 3:
+            return _unet1d_layout(levels)
+        return _unet_layout(levels, sr3="noise_level_mlp.1.weight" in state_dict,
+                            learned="time_mlp.0.weights" in state_dict)
     if "body.0.conv.proj.weight" in state_dict:
         blocks = _count(lambda i: f"body.{i}.conv.proj.weight" in state_dict)
         variant = ("sr3" if "noise_level_mlp.1.weight" in state_dict
@@ -281,6 +343,12 @@ _BASELINE_LAYOUTS = {
     "HiedsrDiscriminator": (lambda n: (
         [_c("Conv2d_0", "body.0")] + [e for i in range(7) for e in _cbl_stage(i)]
         + [_c("Conv2d_1", "body.9")]), None, None),
+    "VAEModel": (lambda n: (
+        [_c(f"enc{i}", f"enc_convs.{i}", "bare") for i in range(4)]
+        + [_c("enc_pre", "enc_dense", "linear"), _c("mu", "mu_head", "linear"),
+           _c("logvar", "logvar_head", "linear"), _c("dec_pre", "dec_dense", "linear")]
+        + [_c(f"dec{i}", f"dec_convs.{i}", "convt") for i in range(3)]
+        + [_c("dec_out", "dec_out", "convt")]), None, None),
     "VGGFeatures": (_vgg_layout, lambda p: _count(lambda i: f"Conv_{i}" in p),
                     lambda sd: len([k for k in sd if k.startswith("features.")]) // 2),
 }
@@ -316,7 +384,8 @@ def params_from_jax(tree: dict, *, model: Optional[str] = None) -> dict[str, tor
     sd = {}
 
     def oihw(kernel) -> torch.Tensor:
-        return _tensor(np.asarray(kernel).transpose(3, 2, 0, 1))
+        k = np.asarray(kernel)
+        return _tensor(k.transpose(3, 2, 0, 1) if k.ndim == 4 else k.transpose(2, 1, 0))
 
     def walk(t, path):
         for key in path:
@@ -334,9 +403,12 @@ def params_from_jax(tree: dict, *, model: Optional[str] = None) -> dict[str, tor
                 sd[name + ".weight"] = oihw(leaves["kernel"])
             if "bias" in leaves:
                 sd[name + ".bias"] = _tensor(leaves["bias"])
-        elif kind == "dense":
-            sd[name + ".weight"] = _tensor(np.asarray(node["Dense_0"]["kernel"]).T)
-            sd[name + ".bias"] = _tensor(node["Dense_0"]["bias"])
+        elif kind in ("dense", "linear"):
+            leaves = node["Dense_0"] if kind == "dense" else node
+            sd[name + ".weight"] = _tensor(np.asarray(leaves["kernel"]).T)
+            sd[name + ".bias"] = _tensor(leaves["bias"])
+        elif kind == "weights":
+            sd[name + ".weights"] = _tensor(node["weights"])
         elif kind in ("gn", "bn"):
             sd[name + ".weight"] = _tensor(node["scale"])
             sd[name + ".bias"] = _tensor(node["bias"])
@@ -344,8 +416,8 @@ def params_from_jax(tree: dict, *, model: Optional[str] = None) -> dict[str, tor
                 st = walk(stats, path)
                 sd[name + ".running_mean"] = _tensor(st["mean"])
                 sd[name + ".running_var"] = _tensor(st["var"])
-        else:  # g
-            sd[name + ".g"] = _tensor(node["g"]).reshape(1, -1, 1, 1)
+        else:  # g, g1
+            sd[name + ".g"] = _tensor(node["g"]).reshape((1, -1, 1, 1) if kind == "g" else (1, -1, 1))
     return sd
 
 
@@ -360,7 +432,8 @@ def params_to_jax(state_dict: dict, *, model: Optional[str] = None) -> dict:
             state_dict[name].detach().to("cpu", torch.float32).numpy())
 
     def hwio(name) -> np.ndarray:
-        return np.ascontiguousarray(array(name).transpose(2, 3, 1, 0))
+        w = array(name)
+        return np.ascontiguousarray(w.transpose(2, 3, 1, 0) if w.ndim == 4 else w.transpose(2, 1, 0))
 
     def at(tree, path) -> dict:
         for key in path[:-1]:
@@ -383,15 +456,18 @@ def params_to_jax(state_dict: dict, *, model: Optional[str] = None) -> dict:
             if name + ".bias" in state_dict:
                 leaves["bias"] = array(name + ".bias")
             tree[path[-1]] = {"Conv_0": leaves} if kind == "conv" else leaves
-        elif kind == "dense":
-            tree[path[-1]] = {"Dense_0": {"kernel": np.ascontiguousarray(array(name + ".weight").T),
-                                          "bias": array(name + ".bias")}}
+        elif kind in ("dense", "linear"):
+            leaves = {"kernel": np.ascontiguousarray(array(name + ".weight").T),
+                      "bias": array(name + ".bias")}
+            tree[path[-1]] = {"Dense_0": leaves} if kind == "dense" else leaves
+        elif kind == "weights":
+            tree[path[-1]] = {"weights": array(name + ".weights")}
         elif kind in ("gn", "bn"):
             tree[path[-1]] = {"scale": array(name + ".weight"), "bias": array(name + ".bias")}
             if kind == "bn":
                 at(stats, path)[path[-1]] = {"mean": array(name + ".running_mean"),
                                              "var": array(name + ".running_var")}
-        else:  # g
+        else:  # g, g1
             tree[path[-1]] = {"g": np.ascontiguousarray(array(name + ".g").reshape(-1))}
     return {"params": params, "batch_stats": stats} if stats else params
 

@@ -118,6 +118,11 @@ class McoolFile:
             f"(names: {self.chromnames[:8]}{'...' if len(self.chromnames) > 8 else ''})"
         )
 
+    def weights(self, chrom: str) -> np.ndarray:
+        """The balancing weights of one chromosome's bins, NaN as stored."""
+        ci = self._chrom_index(chrom)
+        return self._weights[self._chrom_offset[ci]:self._chrom_offset[ci + 1]]
+
     def _group(self, f):
         if "resolutions" in f:
             return f[f"resolutions/{self.resolution}"]

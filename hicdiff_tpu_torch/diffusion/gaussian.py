@@ -1,5 +1,4 @@
-"""Gaussian diffusion engine (port of the three modes, `objective="pred_noise"`,
-of hicdiff_tpu/diffusion/gaussian.py).
+"""Gaussian diffusion engine (port of hicdiff_tpu/diffusion/gaussian.py).
 
 `mode="cond"`: the noisy patch is the model's persistent self-conditioning
 input at every step. `mode="sr3"`: the same conditioning, but the model
@@ -10,19 +9,32 @@ from pure noise of a given shape and, for a self-conditioned model, thread
 the previous step's x0 prediction (zeros at the first step); the DDRM
 sampler (`sampling/ddrm.py`) drives it as a raw eps-model.
 
-Reverse chains are Python loops (the JAX package's `lax.scan`); each
-ancestral step ends in `kernels.sample_step.fused_posterior_step`, the CUDA
-kernel on a CUDA tensor. Randomness comes from an explicit CPU
-`torch.Generator`: the ancestral step draws one seed from it, so the chain
-never waits on the device for its noise.
+`objective`: the model predicts the noise (`pred_noise`, the default and
+the only one the CLIs train), the clean image (`pred_x0`) or
+v = sqrt(acp) eps - sqrt(1 - acp) x0 (`pred_v`); `model_predictions` turns
+each into (noise, x0), and the losses target it. `loss_type` is `l2` or
+`l1`; `p2_loss_weight_gamma` / `_k` and `schedule_fn_kwargs` go to the
+schedule. `seq_length` makes the engine 1-D (samples (seq_length,
+channels), e.g. for `models.unet1d.Unet1D`).
+
+Reverse chains are Python loops (the JAX package's `lax.scan`). Under
+`pred_noise` each ancestral step ends in
+`kernels.sample_step.fused_posterior_step`, the CUDA kernel on a CUDA
+tensor, which draws its noise in the kernel from one seed taken from an
+explicit CPU `torch.Generator`, so the chain never waits on the device for
+its noise. Under `pred_x0` and `pred_v` the step goes through
+`p_mean_variance` and a normal draw from the generator, as the JAX package
+fuses the step for `pred_noise` alone. DDIM clips its x0 prediction unless
+`ddim_clip_x_start=False`; `return_all_timesteps` makes a chain return
+every state, the start included, stacked on a new first axis.
 
 `t_start` truncates a conditioned chain: it starts at t* from
 sqrt(acp[t*]) * y, which is exactly the forward marginal q(x_t* | x0) when
 acp[t*] = 1 / (1 + sigma^2) (`truncation_timestep`).
 
-Training: `q_sample`, `q_sample_continuous` and `p_losses` (the pred_noise
-L2 loss of the JAX package's `p_losses` and `_p_losses_sr3`). Its draws
-come from an explicit `torch.Generator`, or from the caller.
+Training: `q_sample`, `q_sample_continuous` and `p_losses` (the JAX
+package's `p_losses` and `_p_losses_sr3`). Its draws come from an explicit
+`torch.Generator`, or from the caller.
 """
 from __future__ import annotations
 
@@ -39,6 +51,8 @@ from hicdiff_tpu_torch.kernels.sample_step import fused_posterior_step
 __all__ = ["GaussianDiffusion", "ModelPrediction"]
 
 MODES = ("cond", "uncond", "sr3")
+OBJECTIVES = ("pred_noise", "pred_x0", "pred_v")
+LOSS_TYPES = ("l2", "l1")
 
 
 class ModelPrediction(NamedTuple):
@@ -83,6 +97,10 @@ class GaussianDiffusion:
     mode: str = "cond"
     image_size: int = 64
     sr3_per_sample_t: bool = False
+    objective: str = "pred_noise"
+    loss_type: str = "l2"
+    ddim_clip_x_start: bool = True
+    seq_length: Optional[int] = None
 
     @classmethod
     def create(
@@ -98,13 +116,26 @@ class GaussianDiffusion:
         mode: str = "cond",
         image_size: int = 64,
         sr3_per_sample_t: bool = False,
+        objective: str = "pred_noise",
+        loss_type: str = "l2",
+        ddim_clip_x_start: bool = True,
+        p2_loss_weight_gamma: float = 0.0,
+        p2_loss_weight_k: float = 1.0,
+        schedule_fn_kwargs: Optional[dict] = None,
+        seq_length: Optional[int] = None,
     ) -> "GaussianDiffusion":
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+        if objective not in OBJECTIVES:
+            raise ValueError(f"objective must be one of {OBJECTIVES}, got {objective!r}")
+        if loss_type not in LOSS_TYPES:
+            raise ValueError(f"loss_type must be one of {LOSS_TYPES}, got {loss_type!r}")
         if mode != "uncond" and not getattr(model, "self_condition", False):
             raise ValueError(f"mode={mode!r} conditions on the noisy patch through "
                              "self-conditioning: it needs a self_condition=True model")
-        host = make_schedule(beta_schedule, timesteps, device="cpu")
+        host = make_schedule(beta_schedule, timesteps, device="cpu",
+                             p2_loss_weight_gamma=p2_loss_weight_gamma,
+                             p2_loss_weight_k=p2_loss_weight_k, **(schedule_fn_kwargs or {}))
         return cls(
             model=model,
             schedule=host.to(device),
@@ -115,6 +146,10 @@ class GaussianDiffusion:
             mode=mode,
             image_size=image_size,
             sr3_per_sample_t=sr3_per_sample_t,
+            objective=objective,
+            loss_type=loss_type,
+            ddim_clip_x_start=ddim_clip_x_start,
+            seq_length=seq_length,
         )
 
     # ------------------------------------------------------------------ setup
@@ -133,6 +168,13 @@ class GaussianDiffusion:
     def conditioned(self) -> bool:
         """Whether the chains take a conditioning batch (else a shape)."""
         return self.mode in ("cond", "sr3") and self.model.self_condition
+
+    @property
+    def sample_data_shape(self) -> tuple:
+        """One sample's shape: (seq_length, C) 1-D, else (H, W, C)."""
+        if self.seq_length is not None:
+            return (self.seq_length, self.model.channels)
+        return (self.image_size, self.image_size, self.model.channels)
 
     @property
     def device(self) -> torch.device:
@@ -186,6 +228,21 @@ class GaussianDiffusion:
             - _extract(s.sqrt_recipm1_alphas_cumprod, t, x_t.ndim) * noise
         )
 
+    def predict_noise_from_start(self, x_t, t, x0):
+        s = self.schedule
+        return ((_extract(s.sqrt_recip_alphas_cumprod, t, x_t.ndim) * x_t - x0)
+                / _extract(s.sqrt_recipm1_alphas_cumprod, t, x_t.ndim))
+
+    def predict_v(self, x_start, t, noise):
+        s = self.schedule
+        return (_extract(s.sqrt_alphas_cumprod, t, x_start.ndim) * noise
+                - _extract(s.sqrt_one_minus_alphas_cumprod, t, x_start.ndim) * x_start)
+
+    def predict_start_from_v(self, x_t, t, v):
+        s = self.schedule
+        return (_extract(s.sqrt_alphas_cumprod, t, x_t.ndim) * x_t
+                - _extract(s.sqrt_one_minus_alphas_cumprod, t, x_t.ndim) * v)
+
     def q_sample(self, x_start, t, noise):
         """Forward diffusion x_t ~ q(x_t | x_0)."""
         s = self.schedule
@@ -219,11 +276,18 @@ class GaussianDiffusion:
         return t
 
     def model_predictions(self, x, t, x_self_cond=None, clip_x_start: bool = False):
-        pred_noise = self.model(x, self._model_time(t), x_self_cond)
-        x_start = self.predict_start_from_noise(x, t, pred_noise)
-        if clip_x_start:
-            x_start = torch.clamp(x_start, -1.0, 1.0)
-        return ModelPrediction(pred_noise, x_start)
+        """(noise, x0) from the model's output under the engine's objective;
+        x0 clipped to [-1, 1] with clip_x_start, before the noise is
+        derived from it."""
+        out = self.model(x, self._model_time(t), x_self_cond)
+
+        def clip(z):
+            return torch.clamp(z, -1.0, 1.0) if clip_x_start else z
+
+        if self.objective == "pred_noise":
+            return ModelPrediction(out, clip(self.predict_start_from_noise(x, t, out)))
+        x_start = clip(out if self.objective == "pred_x0" else self.predict_start_from_v(x, t, out))
+        return ModelPrediction(self.predict_noise_from_start(x, t, x_start), x_start)
 
     def p_mean_variance(self, x, t, x_self_cond=None, clip_denoised: bool = True):
         x_start = self.model_predictions(x, t, x_self_cond).pred_x_start
@@ -237,8 +301,15 @@ class GaussianDiffusion:
     # -------------------------------------------------------------- sampling
     @torch.no_grad()
     def p_sample_step(self, x, t_scalar: int, x_self_cond, generator: torch.Generator):
-        """One reverse step (x_{t-1}, x0); its noise is zero at t == 0."""
+        """One reverse step (x_{t-1}, x0); its noise is zero at t == 0.
+        pred_noise: the fused posterior step; else the posterior of
+        `p_mean_variance` plus a normal draw from `generator`."""
         t = torch.full((x.shape[0],), t_scalar, dtype=torch.long, device=x.device)
+        if self.objective != "pred_noise":
+            mean, _, log_var, x_start = self.p_mean_variance(x, t, x_self_cond)
+            if t_scalar == 0:
+                return mean, x_start
+            return mean + torch.exp(0.5 * log_var) * _randn(x.shape, generator, x.device), x_start
         eps = self.model(x, self._model_time(t), x_self_cond)
         seed = int(torch.randint(0, 2**63 - 1, (1,), generator=generator))
         s = self.host_schedule
@@ -255,23 +326,28 @@ class GaussianDiffusion:
         )
 
     @torch.no_grad()
-    def _ancestral(self, img, times, cond, generator):
+    def _ancestral(self, img, times, cond, generator, return_all_timesteps=False):
         x_start = torch.zeros_like(img)
+        states = [img]
         for t in times:
             img, x_start = self.p_sample_step(img, t, self._self_cond(cond, x_start), generator)
-        return img
+            if return_all_timesteps:
+                states.append(img)
+        return torch.stack(states) if return_all_timesteps else img
 
     @torch.no_grad()
-    def p_sample_loop(self, x_in, generator: torch.Generator):
+    def p_sample_loop(self, x_in, generator: torch.Generator, *,
+                      return_all_timesteps: bool = False):
         """The ancestral chain. x_in: the conditioning batch (B, H, W, C) of
         a conditioned engine, read at every step; else the shape to sample."""
         truncated, img = self._chain_init(x_in, generator)
         top = self.t_start if truncated else self.num_timesteps - 1
         return self._ancestral(img, range(top, -1, -1), x_in if self.conditioned else None,
-                               generator)
+                               generator, return_all_timesteps)
 
     @torch.no_grad()
-    def ddim_sample(self, x_in, generator: torch.Generator):
+    def ddim_sample(self, x_in, generator: torch.Generator, *,
+                    return_all_timesteps: bool = False):
         """DDIM over `sampling_timesteps` time pairs; x_in as in `p_sample_loop`."""
         truncated, img = self._chain_init(x_in, generator)
         cond = x_in if self.conditioned else None
@@ -282,33 +358,38 @@ class GaussianDiffusion:
         acp = self.host_schedule.alphas_cumprod.numpy()
         eta = np.float32(self.ddim_sampling_eta)
         x_start = torch.zeros_like(img)
+        states = [img]
         for time, time_next in zip(times[:-1], times[1:]):
             t = torch.full((img.shape[0],), int(time), dtype=torch.long, device=img.device)
             pred_noise, x_start = self.model_predictions(
-                img, t, self._self_cond(cond, x_start), clip_x_start=True)
+                img, t, self._self_cond(cond, x_start), clip_x_start=self.ddim_clip_x_start)
             if time_next < 0:
                 img = x_start
-                continue
-            alpha, alpha_next = acp[time], acp[time_next]
-            sigma = eta * np.sqrt((1 - alpha / alpha_next) * (1 - alpha_next) / (1 - alpha))
-            c = np.sqrt(1 - alpha_next - sigma**2)
-            img = x_start * float(np.sqrt(alpha_next)) + float(c) * pred_noise
-            if sigma > 0:
-                img = img + float(sigma) * _randn(img.shape, generator, img.device)
-        return img
+            else:
+                alpha, alpha_next = acp[time], acp[time_next]
+                sigma = eta * np.sqrt((1 - alpha / alpha_next) * (1 - alpha_next) / (1 - alpha))
+                c = np.sqrt(1 - alpha_next - sigma**2)
+                img = x_start * float(np.sqrt(alpha_next)) + float(c) * pred_noise
+                if sigma > 0:
+                    img = img + float(sigma) * _randn(img.shape, generator, img.device)
+            if return_all_timesteps:
+                states.append(img)
+        return torch.stack(states) if return_all_timesteps else img
 
-    def super_resolution(self, x_in, generator: torch.Generator):
+    def super_resolution(self, x_in, generator: torch.Generator, *,
+                         return_all_timesteps: bool = False):
         """DDIM when sampling_timesteps < T, else the ancestral chain; a
         conditioned chain is truncated at t_start when it is set. x_in as in
         `p_sample_loop`."""
         fn = self.ddim_sample if self.is_ddim_sampling else self.p_sample_loop
-        return fn(x_in, generator)
+        return fn(x_in, generator, return_all_timesteps=return_all_timesteps)
 
-    def sample(self, batch_size: int, generator: torch.Generator):
-        """Unconditional samples (batch_size, image_size, image_size,
-        channels) from pure noise."""
-        shape = (batch_size, self.image_size, self.image_size, self.model.channels)
-        return self.super_resolution(shape, generator)
+    def sample(self, batch_size: int, generator: torch.Generator, *,
+               return_all_timesteps: bool = False):
+        """Unconditional samples (batch_size, *sample_data_shape) from pure
+        noise."""
+        return self.super_resolution((batch_size, *self.sample_data_shape), generator,
+                                     return_all_timesteps=return_all_timesteps)
 
     @torch.no_grad()
     def interpolate(self, x1, x2, generator: torch.Generator, *, t: Optional[int] = None,
@@ -331,12 +412,17 @@ class GaussianDiffusion:
         return img
 
     # ------------------------------------------------------------------ loss
+    def _elementwise_loss(self, model_out, target):
+        diff = model_out - target
+        return diff.square() if self.loss_type == "l2" else diff.abs()
+
     def p_losses(self, cond, x_start, *, generator: Optional[torch.Generator] = None,
                  t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
                  level: Optional[torch.Tensor] = None, reduce: bool = True):
-        """The training loss: the model predicts the noise of
-        x_t = q_sample(x_start, t, noise); the per-sample mean squared error
-        times p2_loss_weight[t]. mode 'cond': the model is self-conditioned
+        """The training loss: the model reads x_t = q_sample(x_start, t,
+        noise) and predicts the objective's target (the noise, x_start, or
+        predict_v(x_start, t, noise)); the per-sample mean of the l2 or l1
+        error times p2_loss_weight[t]. mode 'cond': the model is self-conditioned
         on `cond`, the noisy patch. mode 'uncond': `cond` is None; a
         self-conditioned model conditions, on a fair coin, on its own x0
         prediction from zeros (gradient stopped), else on zeros
@@ -365,7 +451,13 @@ class GaussianDiffusion:
         else:
             x_self_cond = None
         model_out = self.model(x, t, x_self_cond)
-        loss = (model_out - noise).square().reshape(b, -1).mean(dim=1)
+        if self.objective == "pred_noise":
+            target = noise
+        elif self.objective == "pred_x0":
+            target = x_start
+        else:
+            target = self.predict_v(x_start, t, noise)
+        loss = self._elementwise_loss(model_out, target).reshape(b, -1).mean(dim=1)
         loss = loss * self.schedule.p2_loss_weight[t]
         return loss.mean() if reduce else loss
 
@@ -380,8 +472,11 @@ class GaussianDiffusion:
         and that draw clamps to minval: the level is prev[t - 1] exactly,
         as in the JAX package. Unless given, t, the uniforms of the level
         and the noise are drawn from `generator` in that order; a given
-        `level` needs no t."""
+        `level` needs no t, unless the objective is pred_v, whose target
+        is predict_v(x_end, t - 1, noise)."""
         b, device = x_end.shape[0], x_end.device
+        if level is not None and t is None and self.objective == "pred_v":
+            raise ValueError("the pred_v target needs the t of the given level")
         if level is None:
             if t is None:
                 shape = (b,) if self.sr3_per_sample_t else ()
@@ -395,5 +490,12 @@ class GaussianDiffusion:
         level, noise = to_device(level, device), to_device(noise, device)
         x = self.q_sample_continuous(x_end, level, noise)
         model_out = self.model(x, level, cond if self.model.self_condition else None)
-        loss = (model_out - noise).square()
+        if self.objective == "pred_noise":
+            target = noise
+        elif self.objective == "pred_x0":
+            target = x_end
+        else:
+            tb = torch.clamp(torch.as_tensor(t) - 1, 0, self.num_timesteps - 1)
+            target = self.predict_v(x_end, to_device(tb.expand(b), device), noise)
+        loss = self._elementwise_loss(model_out, target)
         return loss.mean() if reduce else loss.reshape(b, -1).mean(dim=1)

@@ -137,11 +137,12 @@ class DiffusionSchedule:
 
 def make_schedule(name: str, timesteps: int, *, device: torch.device | str,
                   p2_loss_weight_gamma: float = 0.0,
-                  p2_loss_weight_k: float = 1.0) -> DiffusionSchedule:
+                  p2_loss_weight_k: float = 1.0, **schedule_kwargs) -> DiffusionSchedule:
     """Build all derived constants in float64, cast to float32 on `device`.
     The p2 loss weight (k + acp / (1 - acp)) ** -gamma is all ones at
-    gamma = 0, the only value train.py uses."""
-    betas = np.asarray(make_beta_schedule(name, timesteps), dtype=np.float64)
+    gamma = 0, the only value train.py uses. `schedule_kwargs` go to the
+    beta schedule (cosine's s; sigmoid's start, end, tau)."""
+    betas = np.asarray(make_beta_schedule(name, timesteps, **schedule_kwargs), dtype=np.float64)
 
     alphas = 1.0 - betas
     alphas_cumprod = np.cumprod(alphas)

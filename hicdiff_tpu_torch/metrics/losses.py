@@ -11,7 +11,7 @@ from a torch generator). The weightings are the reference's.
 Image tensors are NHWC. A `vgg` argument is any callable mapping an NHWC
 image batch to its features, e.g. a `VGGFeatures` module; the target's
 features are detached, as the JAX package stops their gradient.
-`vae_latent_loss` waits for the port of `models/vae.py`.
+`vae_latent_loss` is the latent perceptual loss of a `models/vae.py` VAE.
 """
 from __future__ import annotations
 
@@ -34,6 +34,7 @@ __all__ = [
     "init_vgg_params",
     "load_vgg_params",
     "tv_loss",
+    "vae_latent_loss",
 ]
 
 
@@ -171,6 +172,21 @@ def deephic_generator_loss(vgg, out_labels, out_images, target_images):
     perception = _perception_loss(vgg, out_images, target_images)
     tv = tv_loss(out_images)
     return image_loss + 0.001 * adversarial + 0.006 * perception + 2e-8 * tv
+
+
+def vae_latent_loss(
+    encode_fn: Callable[[torch.Tensor], Sequence[torch.Tensor]],
+    output: torch.Tensor,
+    target: torch.Tensor,
+) -> torch.Tensor:
+    """vae_loss.VaeLoss.forward: the MSE between the VAE-encoder means of
+    output and target (`encode_fn` maps a patch batch to (mu, logvar), e.g.
+    a trained `models.vae.VAEModel.encode`). The target's encoding is
+    detached, so the gradient flows through the output alone."""
+    mu_out = encode_fn(output)[0]
+    with torch.no_grad():
+        mu_target = encode_fn(target)[0]
+    return (mu_target - mu_out).square().mean()
 
 
 def feature_reconstruction_loss(

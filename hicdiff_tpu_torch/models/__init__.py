@@ -1,1 +1,2 @@
-"""The diffusion backbones (HicedrnDiff, Unet), their building blocks and registry."""
+"""The diffusion backbones (HicedrnDiff, Unet, Unet1D), the VAE, the baselines,
+their building blocks and registry."""

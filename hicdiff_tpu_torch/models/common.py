@@ -29,7 +29,8 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = [
-    "BatchNorm", "ChannelLayerNorm", "frozen_batch_stats", "init_layers", "NoiseLevelMLP", "ParamCache", "SR3PositionalEncoding",
+    "BatchNorm", "ChannelLayerNorm", "frozen_batch_stats", "init_layers",
+    "LearnedSinusoidalPosEmb", "NoiseLevelMLP", "ParamCache", "SR3PositionalEncoding",
     "SinusoidalPosEmb", "TimeMLP", "conv_nhwc", "init_torch_default", "layer_norm_channels",
     "linear",
 ]
@@ -85,6 +86,23 @@ class SinusoidalPosEmb(nn.Module):
         return torch.cat([emb.sin(), emb.cos()], dim=-1)
 
 
+class LearnedSinusoidalPosEmb(nn.Module):
+    """Learned (or, with is_random, fixed random Fourier) sinusoidal
+    embedding of dim + 1 features: t, sin(2 pi t w), cos(2 pi t w) for the
+    dim // 2 frequencies w, drawn from N(0, 1). The random variant's
+    frequencies take no gradient."""
+
+    def __init__(self, dim: int, is_random: bool = False, *, device=None):
+        super().__init__()
+        self.weights = nn.Parameter(torch.zeros(dim // 2, device=device),
+                                    requires_grad=not is_random)
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        t = t.float()[:, None]
+        freqs = t * self.weights[None, :] * 2 * math.pi
+        return torch.cat([t, freqs.sin(), freqs.cos()], dim=-1)
+
+
 class SR3PositionalEncoding(nn.Module):
     """WaveGrad-style encoding of a continuous noise level (sqrt alpha-bar),
     fp32: level * exp(-ln(1e4) * i / count) for i < count = dim // 2, then
@@ -103,14 +121,22 @@ class SR3PositionalEncoding(nn.Module):
 
 class TimeMLP(nn.Sequential):
     """sinusoidal(fourier_dim) -> Linear -> GELU (exact erf) -> Linear, in fp32.
+    With `learned_dim`, a LearnedSinusoidalPosEmb(learned_dim, `random`) of
+    learned_dim + 1 features replaces the fixed embedding.
 
-    A Sequential so its parameters are named `1.*` and `3.*`, the reference
-    state-dict layout (`time_mlp.1.weight`, ...)."""
+    A Sequential so its parameters are named `0.weights` (learned), `1.*`
+    and `3.*`, the reference state-dict layout (`time_mlp.1.weight`, ...)."""
 
-    def __init__(self, fourier_dim: int, time_dim: int, *, device=None):
+    def __init__(self, fourier_dim: int, time_dim: int, *, learned_dim: Optional[int] = None,
+                 random: bool = False, device=None):
+        if learned_dim is None:
+            emb, width = SinusoidalPosEmb(fourier_dim), fourier_dim
+        else:
+            emb = LearnedSinusoidalPosEmb(learned_dim, random, device=device)
+            width = learned_dim + 1
         super().__init__(
-            SinusoidalPosEmb(fourier_dim),
-            nn.Linear(fourier_dim, time_dim, device=device),
+            emb,
+            nn.Linear(width, time_dim, device=device),
             nn.GELU(),
             nn.Linear(time_dim, time_dim, device=device),
         )
@@ -166,7 +192,7 @@ def init_torch_default(module: nn.Module, generator: torch.Generator) -> None:
     bias both reduce to U(-1/sqrt(fan_in), 1/sqrt(fan_in)). Parameters must
     lie on the generator's device."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
+        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)):
             bound = 1.0 / math.sqrt(m.weight[0].numel())
             m.weight.uniform_(-bound, bound, generator=generator)
             if m.bias is not None:
@@ -175,6 +201,8 @@ def init_torch_default(module: nn.Module, generator: torch.Generator) -> None:
             m.reset_parameters()
         elif isinstance(m, ChannelLayerNorm):
             m.g.fill_(1.0)
+        elif isinstance(m, LearnedSinusoidalPosEmb):
+            m.weights.normal_(generator=generator)
 
 
 class BatchNorm(nn.Module):

@@ -9,6 +9,10 @@ Downsample is space-to-depth with channel-major order (new channel
 c * 4 + p1 * 2 + p2) + 1x1 conv; Upsample is nearest x2 + 3x3 conv.
 `noise_level_emb=True` is the SR3 variant (hicdiff_sr3.py:348-359): it
 conditions on a continuous noise level through `NoiseLevelMLP`.
+`learned_sinusoidal_cond` (or `random_fourier_features`, its frequencies
+fixed) replaces the fixed sinusoidal time embedding by a learned Fourier one
+of learned_sinusoidal_dim + 1 features (hicdiff.py:136-151;
+`time_mlp.0.weights`).
 
 Tensors are NHWC. Parameters are float32 and named in the lucidrains
 state-dict layout: `init_conv`, `time_mlp.{1,3}` (`noise_level_mlp.{1,3}`
@@ -208,16 +212,13 @@ class Unet(nn.Module):
         self_condition: bool = False,
         learned_sinusoidal_cond: bool = False,
         random_fourier_features: bool = False,
+        learned_sinusoidal_dim: int = 16,
         noise_level_emb: bool = False,
         dtype: Optional[torch.dtype] = None,
         device: torch.device | str,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if learned_sinusoidal_cond or random_fourier_features:
-            raise NotImplementedError(
-                "the learned-sinusoidal and random-Fourier time embeddings are not ported: "
-                "ROADMAP section 1, item 7")
         self.channels = channels
         self.self_condition = self_condition
         self.noise_level_emb = noise_level_emb
@@ -231,7 +232,10 @@ class Unet(nn.Module):
         if noise_level_emb:
             self.noise_level_mlp = NoiseLevelMLP(dim, time_dim, device=meta)
         else:
-            self.time_mlp = TimeMLP(dim, time_dim, device=meta)
+            learned = learned_sinusoidal_cond or random_fourier_features
+            self.time_mlp = TimeMLP(dim, time_dim,
+                                    learned_dim=learned_sinusoidal_dim if learned else None,
+                                    random=random_fourier_features, device=meta)
 
         def block(a, b):
             return UnetResnetBlock(a, b, time_dim, device=meta)

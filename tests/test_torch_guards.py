@@ -29,6 +29,8 @@ def test_port_imports_without_jax():
         "import sample.stard_metric_cond_torch, sample.stard_metric_diff_torch\n"
         "import threed_comp_torch, tools.torch_quartet_metrics\n"
         "import tools.torch_convert_checkpoint, tools.torch_export_checkpoint\n"
+        "import tools.torch_make_fullscale_fixture, tools.torch_latent_target\n"
+        "import tools.torch_fullscale_quality\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'flax', 'optax', 'hicdiff_tpu', 'h5py', 'msgpack', 'sklearn'))\n"
         "assert not bad, bad\n"

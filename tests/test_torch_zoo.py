@@ -291,9 +291,34 @@ def test_converters_reject_unknown_trees():
         params_to_jax({"head.weight": torch.zeros(1)})
 
 
-def test_unported_time_embeddings_raise():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        Unet(dim=16, dim_mults=(1,), learned_sinusoidal_cond=True, device="cpu")
+@pytest.mark.parametrize("emb", ["learned_sinusoidal_cond", "random_fourier_features"])
+def test_learned_time_embeddings_match_flax(emb):
+    """The U-Net with a learned (or fixed random) Fourier time embedding:
+    the forward within 1e-5 of flax's largest value, the params round trip
+    bit-exact with `time_mlp.0.weights`, which takes a gradient only when
+    learned."""
+    kw = dict(dim=16, dim_mults=(1, 2), self_condition=True, **{emb: True})
+    jmodel, port = jax_unet.Unet(**kw), Unet(device="cpu", **kw)
+    inputs = _inputs("unet", 4)
+    params = jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(4),
+                                                  *(jnp.asarray(a) for a in inputs))["params"])
+    assert params["TimeMLP_0"]["LearnedSinusoidalPosEmb_0"]["weights"].shape == (8,)
+    sd = params_from_jax(params)
+    assert set(sd) == set(port.state_dict()) and sd["time_mlp.0.weights"].shape == (8,)
+    port.load_state_dict(sd)
+    want = np.asarray(_jax_forward(jmodel, params, inputs))
+    got = _port_forward(port, inputs).numpy()
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+    back = params_to_jax(sd)
+    for (path, a), (_, b) in zip(jax.tree_util.tree_leaves_with_path(back),
+                                 jax.tree_util.tree_leaves_with_path(params)):
+        assert np.array_equal(a, b), path
+    port(*(torch.from_numpy(a) for a in inputs)).square().mean().backward()
+    grad = port.time_mlp[0].weights.grad
+    if emb == "random_fourier_features":
+        assert grad is None
+    else:
+        assert grad is not None and grad.abs().max() > 0
 
 
 def test_registry_builds_full_width_on_the_named_device():
