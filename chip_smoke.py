@@ -191,6 +191,7 @@ The last line is {"ok": true, "device": {...}}.
 import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import os
 import shutil
@@ -3169,6 +3170,376 @@ def engine_options(dev, card):
     return launches
 
 
+# ---- phase 16: data parallelism, progressive distillation, serve concurrency
+DP_RANKS, DP_RAGGED = 2, 18  # two ranks sharing the card; the train phase's ragged batch
+# the two-rank run against the one-rank run: fp32 at the JAX harness's bars
+# (losses 1e-5, chain and DDRM outputs 1e-4) and the parameters by
+# train_step_vs_plain's rule (multihost.launch: each weight within 4 lr, at
+# most one in 100,000 over lr / 10 apart, where a gradient that sums to
+# about 0 flips its Adam step's sign); bf16 at about 6-10x what a measured
+# run gave (losses 1.7e-6, the chain 1.6e-3 and DDRM 2.1e-4 of outputs whose
+# largest is 1.0 and 1.5, 1871 weights updated over lr / 10 apart; PERF.md
+# §6), inside the conv's 0.016 and the bf16 chains' 2e-2 of the largest value
+DP_TOL = {False: {"loss": 1e-5, "params": None, "sample": 1e-4, "ddrm": 1e-4,
+                  "update_outliers": 1e-5},
+          True: {"loss": 1e-4, "params": None, "sample": 1e-2, "ddrm": 2e-3,
+                 "update_outliers": 5e-4}}
+DISTILL_STAGES, DISTILL_STEPS = "2,1", 4  # distill_torch.py --stages, --steps-per-stage
+DISTILL_LR = 1e-5  # distill_torch.py's --lr
+
+
+def release_device_memory():
+    """Free this process's cached device memory for the phases whose work
+    runs in other processes (the multihost ranks, the daemons); returns the
+    GB still allocated here."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() / 1e9
+
+
+def one_rank_nccl(dev, card):
+    """A one-rank NCCL world on the card: a Trainer step with the mesh equals
+    the step without one, bit for bit (cuDNN held deterministic for the
+    comparison), in fp32 and bf16, at the train batch of 64."""
+    from hicdiff_tpu_torch.diffusion.gaussian import GaussianDiffusion
+    from hicdiff_tpu_torch.models.hicedrn import HicedrnDiff
+    from hicdiff_tpu_torch.parallel.mesh import make_mesh
+    from hicdiff_tpu_torch.parallel.multihost import free_port
+    from hicdiff_tpu_torch.train.trainer import Trainer, step_generator
+
+    t0 = time.time()
+    mesh = make_mesh(torch.device("cuda", 0), backend="nccl",
+                     init_method=f"tcp://localhost:{free_port()}", rank=0, world_size=1)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    rng = np.random.default_rng(16)
+    target = np.clip(rng.normal(0, 0.3, (TRAIN_BATCH, 64, 64, 1)), -1, 1).astype(np.float32)
+    data = np.clip(target + SIGMA * rng.normal(size=target.shape), -1, 1).astype(np.float32)
+    rows = {}
+    try:
+        for bf16 in (False, True):
+            trainers = []
+            for m in (mesh, None):
+                model = HicedrnDiff(self_condition=True, number_resnet=BLOCKS, features=FEATURES,
+                                    dtype=torch.bfloat16 if bf16 else None, device=mesh.device,
+                                    generator=torch.Generator().manual_seed(5))
+                engine = GaussianDiffusion.create(model, device=mesh.device, timesteps=1000,
+                                                  beta_schedule="linear")
+                trainers.append(Trainer(engine, lr=2e-5, mesh=m))
+            losses = [[float(tr.train_step(data, target, generator=step_generator(0, s)))
+                       for s in range(2)] for tr in trainers]
+            torch.cuda.synchronize()
+            same = [n for (n, a), b in zip(trainers[0].model.named_parameters(),
+                                           trainers[1].model.parameters())
+                    if not torch.equal(a, b)]
+            check(losses[0] == losses[1] and not same,
+                  f"one-rank nccl step bf16={bf16}: losses {losses}, params differ: {same[:5]}")
+            rows["bfloat16" if bf16 else "float32"] = losses[0]
+            del trainers
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        mesh.close()
+    phase("data_parallel", t0, run="one_rank_nccl_equals_no_mesh", backend="nccl",
+          batch=TRAIN_BATCH, steps=2, losses=rows, bit_equal=True, card=card)
+
+
+def data_parallel(dev, card):
+    """Phase `data_parallel`: hicdiff_tpu_torch/parallel/multihost.py's
+    launcher on the card, full width, fp32 and bf16: a one-rank run and a
+    two-rank run (gloo, both ranks on cuda:0), each two Trainer steps (the
+    global batch of 64, then the ragged 18), the truncated chain (one noisy
+    step through the posterior kernel at the rank's offset) on the 64 and a
+    DDRM deno restoration (28 forwards) of the 18; the two-rank run held to
+    the one-rank run at DP_TOL; the workers' launch counts; each step's ms
+    (the two ranks share one GPU, so their step time is a record of the
+    harness, not a speed-up). Then the one-rank NCCL world. Returns the
+    two-rank runs' rank-0 launch counts by dtype."""
+    from hicdiff_tpu_torch.parallel import multihost
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    held_gb = release_device_memory()
+    counts = {}
+    for bf16 in (False, True):
+        t0 = time.time()
+        workdir = tempfile.mkdtemp(prefix="smoke_dp_", dir=os.path.join(ROOT, "build"))
+        try:
+            rec = multihost.launch(DP_RANKS, workdir=workdir, device="cuda:0", backend="gloo",
+                                   blocks=BLOCKS, features=FEATURES, batch=TRAIN_BATCH,
+                                   ragged=DP_RAGGED, bf16=bf16, tol=DP_TOL[bf16], timeout=900)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        dtype = "bfloat16" if bf16 else "float32"
+        for run, launches in rec["launches"].items():
+            for name in ("fused_resblock", "fused_resblock_dgrad", "resblock_wgrad",
+                         "resblock_channel_sums", "fused_posterior_step"):
+                check(launches[name] > 0, f"data_parallel {dtype} {run}: {name} never launched")
+        counts[dtype] = rec["launches"]["dp_rank0"]
+        phase("data_parallel", t0, run="multihost_launch", dtype=dtype, ranks=DP_RANKS,
+              backend="gloo", device="cuda:0 (both ranks)", blocks=BLOCKS, features=FEATURES,
+              batches=[TRAIN_BATCH, DP_RAGGED], ddrm_forwards=rec["ddrm_forwards"],
+              ref_losses=rec["ref_losses"], dp_losses=rec["dp_losses"],
+              max_diff=rec["max_diff"], tol=rec["tol"], update=rec["update"],
+              largest=rec["largest"],
+              step_ms=rec["step_ms"], launches=rec["launches"],
+              step_ms_note="two ranks share one GPU: a record of the harness, not a speed-up",
+              smoke_process_allocated_gb=held_gb, card=card)
+    one_rank_nccl(dev, card)
+    return counts
+
+
+def distill_step_vs_plain(dev, card):
+    """One bf16 distillation step (loss, backward, Adam) of the full-width
+    student on the card against the same step on the CPU, from the same
+    weights, batch and draws (i, noise), at the bf16 bars of
+    `train_step_vs_plain`, each held against the CPU's own bf16-fp32 gap: the
+    card's loss and each gradient no farther (L2) from the CPU's bf16 value
+    than that lies from the CPU's fp32 value at the same weights; the
+    updates within 2 lr (a first Adam step moves a weight by at most lr),
+    and no more of them over lr / 10 from the CPU's bf16 updates than the
+    CPU's bf16 updates have from its fp32 ones (a sign flip of a small
+    gradient). The loss is the squared distance of two nearly equal states
+    (the student is the teacher plus a seeded perturbation, 5 % of each
+    weight's spread), so bf16's rounding moves it by percents: the 1e-2
+    relative bar that train_step_vs_plain holds a noise-prediction loss to
+    failed here on the card (1.58 %, PERF.md §6) while the CPU's bf16 and
+    fp32 losses lay 6.0 % apart."""
+    import copy
+
+    from hicdiff_tpu_torch.diffusion.gaussian import GaussianDiffusion
+    from hicdiff_tpu_torch.models.hicedrn import HicedrnDiff
+    from hicdiff_tpu_torch.train.distill import ProgressiveDistiller
+
+    t0 = time.time()
+    lr = DISTILL_LR
+    cpu = HicedrnDiff(self_condition=True, number_resnet=BLOCKS, features=FEATURES,
+                      dtype=torch.bfloat16, device="cpu",
+                      generator=torch.Generator().manual_seed(6))
+    fp32 = copy.deepcopy(cpu)
+    fp32.dtype = None
+    models = {"card": copy.deepcopy(cpu).to(dev), "cpu": cpu, "cpu_fp32": fp32}
+    gen = torch.Generator().manual_seed(13)
+    perturb = [0.05 * p.detach().std(correction=0) * torch.randn(p.shape, generator=gen)
+               for p in cpu.parameters()]
+    rng = np.random.default_rng(7)
+    b = STEP_VS_PLAIN_BATCH
+    x0 = np.clip(rng.normal(0, 0.3, (b, 64, 64, 1)), -1, 1).astype(np.float32)
+    y = np.clip(x0 + SIGMA * rng.normal(size=x0.shape), -1, 1).astype(np.float32)
+    i = torch.tensor([0, 1])  # the deployment init and a marginal state
+    noise = torch.from_numpy(rng.normal(size=x0.shape).astype(np.float32))
+    losses, grads, updates, step_s = {}, {}, {}, {}
+    for side, m in models.items():
+        d = next(m.parameters()).device
+        eng = GaussianDiffusion.create(m, device=d, timesteps=1000, beta_schedule="sigmoid")
+        eng = dataclasses.replace(eng, t_start=eng.truncation_timestep(SIGMA))
+        dist = ProgressiveDistiller(eng, student_steps=2, lr=lr)
+        dist.freeze_teacher()
+        with torch.no_grad():
+            for p, delta in zip(m.parameters(), perturb):
+                p += delta.to(d)
+        before = [p.detach().clone() for p in m.parameters()]
+        tc = time.time()
+        loss = dist.step(y, x0, i=i, noise=noise)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        step_s[side] = time.time() - tc
+        losses[side] = float(loss)
+        grads[side] = {n: p.grad.float().cpu() for n, p in m.named_parameters()}
+        updates[side] = {n: (p.detach() - p0).cpu() for (n, p), p0 in
+                         zip(m.named_parameters(), before)}
+    loss_rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    loss_gap_bf16 = abs(losses["cpu"] - losses["cpu_fp32"]) / abs(losses["cpu"])
+    check(loss_rel <= loss_gap_bf16, f"distill step losses: {losses}")
+    ratio = {}
+    update_tol, flip_tol = 0.1 * lr, 2 * lr * 1.01
+    outliers = {"card_vs_cpu_bf16": 0, "cpu_bf16_vs_cpu_fp32": 0}
+    update_err = 0.0
+    for n, gc in grads["cpu"].items():
+        gk, g32 = grads["card"][n], grads["cpu_fp32"][n]
+        ratio[n] = ((gk - gc).norm() / max((gc - g32).norm(), 1e-30)).item()
+        uk, uc, u32 = updates["card"][n], updates["cpu"][n], updates["cpu_fp32"][n]
+        update_err = max(update_err, (uk - uc).abs().max().item())
+        outliers["card_vs_cpu_bf16"] += int(((uk - uc).abs() > update_tol).sum())
+        outliers["cpu_bf16_vs_cpu_fp32"] += int(((uc - u32).abs() > update_tol).sum())
+    far = max(ratio, key=ratio.get)
+    check(ratio[far] <= 1, f"distill grad {far}: card - cpu bf16 is {ratio[far]} x "
+                           "cpu bf16 - cpu fp32")
+    check(update_err <= flip_tol, f"distill updates: max-abs difference {update_err} > "
+                                  f"{flip_tol}")
+    check(outliers["card_vs_cpu_bf16"] <= outliers["cpu_bf16_vs_cpu_fp32"],
+          f"distill updates over {update_tol} apart: {outliers}")
+    phase("distill", t0, run="step_vs_plain", dtype="bfloat16", blocks=BLOCKS,
+          features=FEATURES, batch=b, student_steps=2, lr=lr, i=i.tolist(), losses=losses,
+          loss_rel_err=loss_rel, loss_tol_cpu_bf16_vs_fp32=loss_gap_bf16, grad_l2_worst=far,
+          grad_l2_ratio_max=ratio[far], grad_l2_ratio_median=float(np.median(list(
+              ratio.values()))), update_tol=update_tol, update_outliers=outliers,
+          params=sum(p.numel() for p in cpu.parameters()), update_max_abs_err=update_err,
+          update_max_abs_tol=flip_tol, card_s=step_s["card"], cpu_s=step_s["cpu"], card=card)
+
+
+def distill(dev, card):
+    """Phase `distill`, bf16: distill_torch.py (--stages 2,1
+    --steps-per-stage 4, batch 64) from a random full-width teacher written
+    by the port's checkpoint writer, on a synthetic cell written as text;
+    the launch counters show the teacher's forwards (no_grad: modes 1 and 2)
+    and the student's (training: mode 3, then 2) take fused_resblock, and
+    the student's backward the dgrad, wgrad and channel sums; then the -u 0
+    CLI runs `--t-start auto --sampling-steps 1` on the `_dist1` checkpoint;
+    then the distill step's ms at batch 64 and one step against the CPU.
+    Returns the CLI run's launch counts."""
+    import distill_torch
+    import inference_torch
+    from hicdiff_tpu_torch.convert import params_to_jax
+    from hicdiff_tpu_torch.data.datamodule import HUMAN_SPLITS
+    from hicdiff_tpu_torch.diffusion.gaussian import GaussianDiffusion
+    from hicdiff_tpu_torch.kernels.resblock import fused_resblock
+    from hicdiff_tpu_torch.kernels.sample_step import fused_posterior_step
+    from hicdiff_tpu_torch.models.hicedrn import HicedrnDiff
+    from hicdiff_tpu_torch.train.checkpoint import checkpoint_name, load_checkpoint, save_checkpoint
+    from hicdiff_tpu_torch.train.distill import ProgressiveDistiller
+    from hicdiff_tpu_torch.train.trainer import step_generator
+
+    t0 = time.time()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="smoke_distill_", dir=os.path.join(ROOT, "build"))
+    counters = _launch_counts()
+    try:
+        split_of = {c: k for k, cs in HUMAN_SPLITS.items() for c in cs}
+        for marker in ("_p99.99", ""):  # distill_torch.py's cache, the CLI's (cell 1: 99.0)
+            write_synthetic_cell(root, lambda c: TRAIN_BINS[split_of[c]], marker=marker)
+        teacher = HicedrnDiff(self_condition=True, number_resnet=BLOCKS, features=FEATURES,
+                              device="cpu", generator=torch.Generator().manual_seed(8))
+        meta = dict(res=40000, chunk=64, cell_line="Human", cell_no=1)
+        path = os.path.join(root, "Model_Weights",
+                            checkpoint_name("bestg", tag="HiCedrn_cond_l2_sig", **meta))
+        save_checkpoint(path, params_to_jax(teacher.state_dict()), run_config=dict(
+            sigma=SIGMA, schedule="sigmoid", mode="cond", timestep=1000, percentile=99.99))
+        del teacher
+        for c in (*counters.values(), fused_posterior_step):
+            c.launches = 0
+        fused_resblock.mode_launches.clear()
+        tr = time.time()
+        distill_torch.main(["--root", root, "--stages", DISTILL_STAGES, "--steps-per-stage",
+                            str(DISTILL_STEPS), "-b", str(TRAIN_BATCH), "-s", str(SIGMA),
+                            "--blocks", str(BLOCKS), "--features", str(FEATURES), "--bf16",
+                            "--device", str(dev)])
+        torch.cuda.synchronize()
+        cli_s = time.time() - tr
+        modes = dict(fused_resblock.mode_launches)
+        launches = {k: c.launches for k, c in counters.items()}
+        stages = len(DISTILL_STAGES.split(","))
+        steps = stages * DISTILL_STEPS
+        val_batches = stages * 1  # 12 val patches: one batch an epoch, one epoch a stage
+        # teacher: two forwards a step and a val batch; student: one training
+        # forward a step (mode 3, then 2), one no_grad forward a val batch
+        want = {1: BLOCKS * (2 * steps + 3 * val_batches), 3: BLOCKS * steps}
+        check(modes.get(1) == want[1] and modes.get(3) == want[3],
+              f"distill: conv modes {modes}, want modes 1 and 3 {want}")
+        # the student's backward: modes 4 and 5, the wgrad and the sums a block a step
+        want_bwd = {"fused_resblock_dgrad": 2 * BLOCKS * steps,
+                    "resblock_wgrad": BLOCKS * steps, "resblock_channel_sums": BLOCKS * steps}
+        check(all(launches[k] == v for k, v in want_bwd.items()),
+              f"distill: backward launches {launches} != {want_bwd}")
+        check(fused_posterior_step.launches == 0, "distill: the posterior step launched")
+        outs = {}
+        for k in DISTILL_STAGES.split(","):
+            out = os.path.join(root, "Model_Weights", checkpoint_name(
+                "bestg", tag=f"HiCedrn_cond_l2_sig_dist{k}", **meta))
+            ck = load_checkpoint(out, only={"run_config", "step"})
+            check(ck["run_config"]["distilled_steps"] == int(k) and ck["step"] == DISTILL_STEPS,
+                  f"distill: {out} run_config {ck['run_config']}")
+            outs[k] = out
+        phase("distill", t0, run="distill_torch", dtype="bfloat16", blocks=BLOCKS,
+              features=FEATURES, batch=TRAIN_BATCH, stages=DISTILL_STAGES,
+              steps_per_stage=DISTILL_STEPS, cli_s=cli_s, conv_modes=modes, launches=launches,
+              want_conv_modes_1_3=want, card=card)
+
+        # the K=1 student through the -u 0 CLI, no new sampler code
+        fused_resblock.launches = fused_posterior_step.launches = 0
+        tr = time.time()
+        res = inference_torch.Inference(
+            device=dev, batch_size=CLI_BATCH, cellNo=1, cell_Line="Human", sigma_t=SIGMA,
+            condition=False, root=root, schedule="sigmoid", timestep=1000, weights=outs["1"],
+            t_start="auto", sampling_steps=1, bf16=True, blocks=BLOCKS, features=FEATURES)
+        torch.cuda.synchronize()
+        wall_s = time.time() - tr
+        n = len(res["inds"])
+        pred = np.load(os.path.join(res["outdir"], "predict.npy"))
+        cli_launches = dict(resblock_launches=fused_resblock.launches,
+                            step_launches=fused_posterior_step.launches)
+        check(pred.shape == (n, 1, 64, 64) and np.isfinite(pred).all(),
+              f"distill K=1 CLI: predict {pred.shape}")
+        check(cli_launches == dict(resblock_launches=-(-n // CLI_BATCH) * BLOCKS * 2,
+                                   step_launches=0), f"distill K=1 CLI: {cli_launches}")
+        phase("distill", tr, run="inference_k1", patches=n, wall_s=wall_s,
+              metrics=res["metrics"], **cli_launches, card=card)
+
+        # the distill step's time at batch 64, bf16
+        tr = time.time()
+        student = HicedrnDiff(self_condition=True, number_resnet=BLOCKS, features=FEATURES,
+                              dtype=torch.bfloat16, device=dev,
+                              generator=torch.Generator().manual_seed(9))
+        eng = GaussianDiffusion.create(student, device=dev, timesteps=1000,
+                                       beta_schedule="sigmoid")
+        dist = ProgressiveDistiller(dataclasses.replace(eng, t_start=29), student_steps=15)
+        dist.freeze_teacher()
+        rng = np.random.default_rng(10)
+        x0 = np.clip(rng.normal(0, 0.3, (TRAIN_BATCH, 64, 64, 1)), -1, 1).astype(np.float32)
+        y = np.clip(x0 + SIGMA * rng.normal(size=x0.shape), -1, 1).astype(np.float32)
+        ms = []
+        for s_ in range(5):
+            torch.cuda.synchronize()
+            tc = time.perf_counter()
+            dist.step(y, x0, step_generator(0, s_))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - tc) * 1e3)
+        phase("distill", tr, run="step_ms", dtype="bfloat16", batch=TRAIN_BATCH,
+              step_ms=ms, step_ms_median_last4=float(np.median(ms[1:])), card=card)
+        del student, eng, dist
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    distill_step_vs_plain(dev, card)
+    return cli_launches
+
+
+def serve_concurrency(dev, card):
+    """Phase `serve_concurrency`: tools/torch_serve_concurrency_smoke.py at
+    batch 64 in bf16 on random full-width checkpoints written by the port's
+    writer: the -u 1 DDRM daemon, then the -u 0 daemon (--sampling-steps 4),
+    two clients with two requests each, every concurrent output byte-equal to
+    a fresh daemon's serial replay; the daemons' launch counters; solo and
+    concurrent request walls."""
+    from hicdiff_tpu_torch.convert import params_to_jax
+    from hicdiff_tpu_torch.models.hicedrn import HicedrnDiff
+    from hicdiff_tpu_torch.train.checkpoint import save_checkpoint
+    from tools.torch_serve_concurrency_smoke import main as smoke_main
+
+    t0 = time.time()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    release_device_memory()
+    root = tempfile.mkdtemp(prefix="smoke_serve_conc_", dir=os.path.join(ROOT, "build"))
+    try:
+        paths = {}
+        for mode, schedule, seed in (("uncond", "linear", 11), ("cond", "sigmoid", 12)):
+            model = HicedrnDiff(self_condition=mode == "cond", number_resnet=BLOCKS,
+                                features=FEATURES, device="cpu",
+                                generator=torch.Generator().manual_seed(seed))
+            paths[mode] = os.path.join(root, f"{mode}.msgpack")
+            save_checkpoint(paths[mode], params_to_jax(model.state_dict()), run_config=dict(
+                sigma=SIGMA, schedule=schedule, mode=mode, timestep=1000))
+        rec = smoke_main(["--ddrm-weights", paths["uncond"], "--cond-weights", paths["cond"],
+                          "--sigma", str(SIGMA), "--batch", str(TRAIN_BATCH), "--device",
+                          str(dev), "--workdir", os.path.join(root, "work")])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for name in ("ddrm", "cond"):
+        for run in ("launches_concurrent", "launches_serial"):
+            check(rec[name][run]["fused_resblock"] > 0, f"serve_concurrency {name}: {rec[name]}")
+    phase("serve_concurrency", t0, batch=rec["batch"], dtype=rec["dtype"],
+          clients=2, requests_per_client=rec["requests_per_client"],
+          ddrm=rec["ddrm"], cond=rec["cond"], byte_equal=True, card=card)
+    return {name: rec[name]["launches_concurrent"] for name in ("ddrm", "cond")}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; torch.cuda.is_available() is False")
@@ -3326,6 +3697,18 @@ def main():
                        (x064 - want_x064).abs().max().item())
     check(step_err_cli <= 1e-6,
           f"fused_posterior_step gate=0 {CLI_STEP_SHAPE}: max-abs {step_err_cli} > 1e-6")
+    # a shard at offset k (its first element over 4) draws the whole batch's
+    # noise at its elements: rows [r, r + n) of one launch over the batch
+    whole, whole_x0 = fused_posterior_step(xs64, es64, a_, b_, c1, c2, logvar, 1.0, 11)
+    row = xs64[0].numel()
+    offset_equal = {}
+    for r, n in ((32, 32), (7, 18), (63, 1)):
+        part, part_x0 = fused_posterior_step(xs64[r:r + n].contiguous(),
+                                             es64[r:r + n].contiguous(), a_, b_, c1, c2,
+                                             logvar, 1.0, 11, offset=r * row // 4)
+        offset_equal[f"rows {r}-{r + n}"] = (torch.equal(part, whole[r:r + n])
+                                             and torch.equal(part_x0, whole_x0[r:r + n]))
+    check(all(offset_equal.values()), f"fused_posterior_step offset: {offset_equal}")
     xn = torch.randn(NOISE_SHAPE, generator=g).to(dev)
     zn = torch.zeros_like(xn)
     sig_logvar = 2 * float(np.log(0.5))  # sigma = 0.5; mean = 0, so x_next is the noise
@@ -3356,7 +3739,8 @@ def main():
           ms=step_ms, plain_ms=step_plain_ms, device_ms=step_dev_ms,
           plain_device_ms=step_plain_dev_ms, bound_ms=step_bound, bound_by=step_bound_by,
           share_of_bound=step_bound / step_ms, share_of_bound_device=step_bound / step_dev_ms,
-          floor_device_ms=floor_dev_ms, host_us=post_host_us, card=card)
+          floor_device_ms=floor_dev_ms, host_us=post_host_us,
+          offset_bit_equal_to_whole_batch=offset_equal, card=card)
 
     # ---- 3b. the block's backward kernels vs the plain twin, timed beside their bounds
     bwd_rows = resblock_backward(dev, card, g)
@@ -3479,6 +3863,12 @@ def main():
     fullscale = fullscale_fixture(dev, card)
     options = engine_options(dev, card)
 
+    # ---- 16. data parallelism (multihost.py's launcher: 1 vs 2 ranks on the
+    # card, a one-rank NCCL world), progressive distillation, serve concurrency
+    dp = data_parallel(dev, card)
+    distilled = distill(dev, card)
+    concurrency = serve_concurrency(dev, card)
+
     r32, r16 = resblock[torch.float32], resblock[torch.bfloat16]
     kernels = [
         {"name": "fused_resblock", "route": "cuda",
@@ -3507,7 +3897,11 @@ def main():
          "launches_stard_metric": {k: v["resblock_launches"] for k, v in scripts.items()},
          "launches_fullscale_cli_k1": fullscale["resblock_launches"],
          "launches_engine_options_chain": {k: v["resblock_launches"]
-                                           for k, v in options.items()}},
+                                           for k, v in options.items()},
+         "launches_data_parallel_rank0": {k: v["fused_resblock"] for k, v in dp.items()},
+         "launches_distill_k1_cli": distilled["resblock_launches"],
+         "launches_serve_concurrency": {k: v["fused_resblock"]
+                                        for k, v in concurrency.items()}},
         {"name": "fused_posterior_step", "route": "cuda",
          "source": "hicdiff_tpu_torch/csrc/sample_step.cu",
          "replaces": "hicdiff_tpu/kernels/sample_step.py:65",
@@ -3521,7 +3915,9 @@ def main():
          "launches_cli_zoo": {k: v["step_launches"] for k, v in zoo_cli.items()},
          "launches_stard_metric": {k: v["step_launches"] for k, v in scripts.items()},
          "launches_fullscale_cli_k1": fullscale["step_launches"],
-         "launches_engine_options_chain": {k: v["step_launches"] for k, v in options.items()}},
+         "launches_engine_options_chain": {k: v["step_launches"] for k, v in options.items()},
+         "launches_data_parallel_rank0": {k: v["fused_posterior_step"] for k, v in dp.items()},
+         "offset_bit_equal_to_whole_batch": offset_equal},
     ]
     # the backward (and the training forward): port-only kernels, no Pallas kernel to replace
     sources = {"fused_resblock_dgrad": "hicdiff_tpu_torch/csrc/resblock.cu",

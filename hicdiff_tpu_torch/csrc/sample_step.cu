@@ -9,7 +9,10 @@
 // and returns (x_next, x0). The TPU kernel draws z from the TPU's own PRNG;
 // this one uses a counter-based Philox4x32-10 keyed on (seed, element group),
 // so the stream is reproducible for a seed and independent of the launch
-// shape, but never equal to the TPU's bits.
+// shape, but never equal to the TPU's bits. The group counts from
+// `group_offset`: a shard of a batch that passes its first element over 4
+// draws the noise the whole batch draws at those elements, as the JAX chain's
+// noise does not depend on how the batch is sharded.
 //
 // What bounds it on the H100: launch latency. It moves 16 bytes per element
 // (x, eps in; x_next, x0 out) and does a few dozen operations each; at the
@@ -72,7 +75,8 @@ __global__ void __launch_bounds__(kThreads)
     posterior_step_kernel(const float* __restrict__ x, const float* __restrict__ eps,
                           float* __restrict__ x_next, float* __restrict__ x0,
                           long long n, float a, float b, float c1, float c2,
-                          float noise_scale, unsigned long long seed) {
+                          float noise_scale, unsigned long long seed,
+                          unsigned long long group_offset) {
   const long long group = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const long long base = group * 4;
   if (base >= n) return;
@@ -82,8 +86,9 @@ __global__ void __launch_bounds__(kThreads)
     xv = *reinterpret_cast<const float4*>(x + base);
     ev = *reinterpret_cast<const float4*>(eps + base);
   }
+  const unsigned long long counter = static_cast<unsigned long long>(group) + group_offset;
   const uint4 bits = philox4x32_10(
-      make_uint4(static_cast<unsigned>(group), static_cast<unsigned>(group >> 32), 0u, 0u),
+      make_uint4(static_cast<unsigned>(counter), static_cast<unsigned>(counter >> 32), 0u, 0u),
       make_uint2(static_cast<unsigned>(seed), static_cast<unsigned>(seed >> 32)));
   float z[4];
   box_muller(bits.x, bits.y, &z[0], &z[1]);
@@ -106,17 +111,19 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // C interface, loaded with ctypes by hicdiff_tpu_torch/kernels/sample_step.py.
-// noise_scale = sigma * gate; x, eps, x_next and x0 are 16-byte aligned.
+// noise_scale = sigma * gate; x, eps, x_next and x0 are 16-byte aligned;
+// group_offset: the Philox counter of the first group of four elements.
 // Returns cudaGetLastError() after the launch.
 extern "C" int hicdiff_posterior_step(const void* x, const void* eps, void* x_next,
                                       void* x0, long long n, float a, float b, float c1,
                                       float c2, float noise_scale,
-                                      unsigned long long seed, void* stream) {
+                                      unsigned long long seed,
+                                      unsigned long long group_offset, void* stream) {
   const long long groups = (n + 3) / 4;
   const unsigned blocks = static_cast<unsigned>((groups + kThreads - 1) / kThreads);
   posterior_step_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(eps),
       static_cast<float*>(x_next), static_cast<float*>(x0), n, a, b, c1, c2, noise_scale,
-      seed);
+      seed, group_offset);
   return static_cast<int>(cudaGetLastError());
 }

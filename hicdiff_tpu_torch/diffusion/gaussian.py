@@ -35,6 +35,12 @@ acp[t*] = 1 / (1 + sigma^2) (`truncation_timestep`).
 Training: `q_sample`, `q_sample_continuous` and `p_losses` (the JAX
 package's `p_losses` and `_p_losses_sr3`). Its draws come from an explicit
 `torch.Generator`, or from the caller.
+
+A shard of a batch (`parallel/`: one rank's rows) passes `rows=(lo, n)`:
+its first row lo within a batch of n real rows. The chains and the loss then
+draw what the whole batch draws and keep the shard's rows (zeros past n, for
+a rank's padding), and the posterior step draws its noise at the shard's
+elements, so a sharded run draws what the one-process run draws.
 """
 from __future__ import annotations
 
@@ -48,7 +54,7 @@ from torch import nn
 from hicdiff_tpu_torch.diffusion.schedules import DiffusionSchedule, make_schedule
 from hicdiff_tpu_torch.kernels.sample_step import fused_posterior_step
 
-__all__ = ["GaussianDiffusion", "ModelPrediction"]
+__all__ = ["GaussianDiffusion", "ModelPrediction", "draw_rows", "keep_rows"]
 
 MODES = ("cond", "uncond", "sr3")
 OBJECTIVES = ("pred_noise", "pred_x0", "pred_v")
@@ -66,8 +72,30 @@ def _extract(a: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
     return out.reshape(out.shape[0], *((1,) * (ndim - 1)))
 
 
-def _randn(shape, generator: torch.Generator, device) -> torch.Tensor:
-    return torch.randn(tuple(shape), generator=generator, dtype=torch.float32).to(device)
+def keep_rows(full: torch.Tensor, rows, b: int) -> torch.Tensor:
+    """A shard's b rows [lo, lo + b) of a draw made for the whole batch,
+    rows = (lo, n); zeros past its end (a rank's padding)."""
+    part = full[rows[0]:rows[0] + b]
+    if part.shape[0] < b:
+        part = torch.cat([part, part.new_zeros((b - part.shape[0], *part.shape[1:]))])
+    return part
+
+
+def draw_rows(fn, shape, rows=None) -> torch.Tensor:
+    """fn(shape), a draw of a batch's shape, or, for a shard at rows =
+    (lo, n), the shard's rows of fn((n, ...)), the whole batch's draw."""
+    shape = tuple(shape)
+    if rows is None:
+        return fn(shape)
+    return keep_rows(fn((rows[1], *shape[1:])), rows, shape[0])
+
+
+def _normal(generator: torch.Generator):
+    return lambda shape: torch.randn(shape, generator=generator, dtype=torch.float32)
+
+
+def _randn(shape, generator: torch.Generator, device, rows=None) -> torch.Tensor:
+    return draw_rows(_normal(generator), shape, rows).to(device)
 
 
 def to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -203,14 +231,14 @@ class GaussianDiffusion:
             raise ValueError(f"t_start {self.t_start} outside [0, {self.num_timesteps})")
         return True
 
-    def _chain_init(self, x_in, generator: torch.Generator):
+    def _chain_init(self, x_in, generator: torch.Generator, rows=None):
         """(truncated?, x_T) of a chain: x_in is the conditioning batch of a
         conditioned engine, else the shape to sample."""
         if self._validate_t_start():
             return True, self._truncated_init(x_in)
         if self.conditioned:
-            return False, _randn(x_in.shape, generator, x_in.device)
-        return False, _randn(x_in, generator, self.device)
+            return False, _randn(x_in.shape, generator, x_in.device, rows)
+        return False, _randn(x_in, generator, self.device, rows)
 
     def _self_cond(self, cond, x_start_prev):
         """The model's self-conditioning input at a reverse step: the
@@ -300,7 +328,8 @@ class GaussianDiffusion:
 
     # -------------------------------------------------------------- sampling
     @torch.no_grad()
-    def p_sample_step(self, x, t_scalar: int, x_self_cond, generator: torch.Generator):
+    def p_sample_step(self, x, t_scalar: int, x_self_cond, generator: torch.Generator,
+                      rows=None):
         """One reverse step (x_{t-1}, x0); its noise is zero at t == 0.
         pred_noise: the fused posterior step; else the posterior of
         `p_mean_variance` plus a normal draw from `generator`."""
@@ -309,9 +338,17 @@ class GaussianDiffusion:
             mean, _, log_var, x_start = self.p_mean_variance(x, t, x_self_cond)
             if t_scalar == 0:
                 return mean, x_start
-            return mean + torch.exp(0.5 * log_var) * _randn(x.shape, generator, x.device), x_start
+            z = _randn(x.shape, generator, x.device, rows)
+            return mean + torch.exp(0.5 * log_var) * z, x_start
         eps = self.model(x, self._model_time(t), x_self_cond)
         seed = int(torch.randint(0, 2**63 - 1, (1,), generator=generator))
+        offset, total = 0, None
+        if rows is not None:  # the shard's first element over 4, in a batch of n rows
+            row = x[0].numel()
+            if rows[0] * row % 4:
+                raise ValueError(f"a shard must start on a group of 4 elements: row {rows[0]} "
+                                 f"of {row} elements")
+            offset, total = rows[0] * row // 4, rows[1] * row
         s = self.host_schedule
         return fused_posterior_step(
             x,
@@ -323,33 +360,36 @@ class GaussianDiffusion:
             float(s.posterior_log_variance_clipped[t_scalar]),
             1.0 if t_scalar > 0 else 0.0,
             seed,
+            offset,
+            total,
         )
 
     @torch.no_grad()
-    def _ancestral(self, img, times, cond, generator, return_all_timesteps=False):
+    def _ancestral(self, img, times, cond, generator, return_all_timesteps=False, rows=None):
         x_start = torch.zeros_like(img)
         states = [img]
         for t in times:
-            img, x_start = self.p_sample_step(img, t, self._self_cond(cond, x_start), generator)
+            img, x_start = self.p_sample_step(img, t, self._self_cond(cond, x_start), generator,
+                                              rows)
             if return_all_timesteps:
                 states.append(img)
         return torch.stack(states) if return_all_timesteps else img
 
     @torch.no_grad()
     def p_sample_loop(self, x_in, generator: torch.Generator, *,
-                      return_all_timesteps: bool = False):
+                      return_all_timesteps: bool = False, rows=None):
         """The ancestral chain. x_in: the conditioning batch (B, H, W, C) of
         a conditioned engine, read at every step; else the shape to sample."""
-        truncated, img = self._chain_init(x_in, generator)
+        truncated, img = self._chain_init(x_in, generator, rows)
         top = self.t_start if truncated else self.num_timesteps - 1
         return self._ancestral(img, range(top, -1, -1), x_in if self.conditioned else None,
-                               generator, return_all_timesteps)
+                               generator, return_all_timesteps, rows)
 
     @torch.no_grad()
     def ddim_sample(self, x_in, generator: torch.Generator, *,
-                    return_all_timesteps: bool = False):
+                    return_all_timesteps: bool = False, rows=None):
         """DDIM over `sampling_timesteps` time pairs; x_in as in `p_sample_loop`."""
-        truncated, img = self._chain_init(x_in, generator)
+        truncated, img = self._chain_init(x_in, generator, rows)
         cond = x_in if self.conditioned else None
         total = self.num_timesteps
         top = self.t_start if truncated else total - 1
@@ -371,18 +411,18 @@ class GaussianDiffusion:
                 c = np.sqrt(1 - alpha_next - sigma**2)
                 img = x_start * float(np.sqrt(alpha_next)) + float(c) * pred_noise
                 if sigma > 0:
-                    img = img + float(sigma) * _randn(img.shape, generator, img.device)
+                    img = img + float(sigma) * _randn(img.shape, generator, img.device, rows)
             if return_all_timesteps:
                 states.append(img)
         return torch.stack(states) if return_all_timesteps else img
 
     def super_resolution(self, x_in, generator: torch.Generator, *,
-                         return_all_timesteps: bool = False):
+                         return_all_timesteps: bool = False, rows=None):
         """DDIM when sampling_timesteps < T, else the ancestral chain; a
         conditioned chain is truncated at t_start when it is set. x_in as in
-        `p_sample_loop`."""
+        `p_sample_loop`; rows: a shard's (first row, rows of the batch)."""
         fn = self.ddim_sample if self.is_ddim_sampling else self.p_sample_loop
-        return fn(x_in, generator, return_all_timesteps=return_all_timesteps)
+        return fn(x_in, generator, return_all_timesteps=return_all_timesteps, rows=rows)
 
     def sample(self, batch_size: int, generator: torch.Generator, *,
                return_all_timesteps: bool = False):
@@ -418,7 +458,7 @@ class GaussianDiffusion:
 
     def p_losses(self, cond, x_start, *, generator: Optional[torch.Generator] = None,
                  t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
-                 level: Optional[torch.Tensor] = None, reduce: bool = True):
+                 level: Optional[torch.Tensor] = None, reduce: bool = True, rows=None):
         """The training loss: the model reads x_t = q_sample(x_start, t,
         noise) and predicts the objective's target (the noise, x_start, or
         predict_v(x_start, t, noise)); the per-sample mean of the l2 or l1
@@ -430,15 +470,17 @@ class GaussianDiffusion:
         `noise` (the shape of x_start) are drawn on the CPU from `generator`,
         in that order, unless given, and moved to x_start's device; the coin
         is drawn from it after them. reduce=False returns the per-sample (B,)
-        vector, else its mean over the batch."""
+        vector, else its mean over the batch. rows: a shard's (first row,
+        rows of the batch), whose draws are the whole batch's."""
         if self.mode == "sr3":
             return self._p_losses_sr3(cond, x_start, generator=generator, t=t, level=level,
-                                      noise=noise, reduce=reduce)
+                                      noise=noise, reduce=reduce, rows=rows)
         b, device = x_start.shape[0], x_start.device
         if t is None:
-            t = torch.randint(0, self.num_timesteps, (b,), generator=generator)
+            t = draw_rows(lambda s: torch.randint(0, self.num_timesteps, s, generator=generator),
+                          (b,), rows)
         if noise is None:
-            noise = torch.randn(tuple(x_start.shape), generator=generator, dtype=torch.float32)
+            noise = draw_rows(_normal(generator), x_start.shape, rows)
         t, noise = to_device(t, device), to_device(noise, device)
         x = self.q_sample(x_start, t, noise)
         if self.mode == "cond":
@@ -462,7 +504,7 @@ class GaussianDiffusion:
         return loss.mean() if reduce else loss
 
     def _p_losses_sr3(self, cond, x_end, *, generator=None, t=None, level=None, noise=None,
-                      reduce=True):
+                      reduce=True, rows=None):
         """The sr3 loss (hicdiff_sr3.py:754-791): t in [1, T], one scalar per
         step (per sample under sr3_per_sample_t); a level per sample drawn
         as the JAX package's jax.random.uniform(minval=prev[t - 1],
@@ -478,15 +520,18 @@ class GaussianDiffusion:
         if level is not None and t is None and self.objective == "pred_v":
             raise ValueError("the pred_v target needs the t of the given level")
         if level is None:
-            if t is None:
-                shape = (b,) if self.sr3_per_sample_t else ()
-                t = torch.randint(1, self.num_timesteps + 1, shape, generator=generator)
+            if t is None and self.sr3_per_sample_t:
+                t = draw_rows(lambda s: torch.randint(1, self.num_timesteps + 1, s,
+                                                      generator=generator), (b,), rows)
+            elif t is None:
+                t = torch.randint(1, self.num_timesteps + 1, (), generator=generator)
             prev = self.host_schedule.sqrt_alphas_cumprod_prev
             lo, hi = prev[t - 1], prev[t]
-            u = torch.rand((b,), generator=generator, dtype=torch.float32)
+            u = draw_rows(lambda s: torch.rand(s, generator=generator, dtype=torch.float32),
+                          (b,), rows)
             level = torch.maximum(lo, u * (hi - lo) + lo)  # jax.random.uniform's form
         if noise is None:
-            noise = torch.randn(tuple(x_end.shape), generator=generator, dtype=torch.float32)
+            noise = draw_rows(_normal(generator), x_end.shape, rows)
         level, noise = to_device(level, device), to_device(noise, device)
         x = self.q_sample_continuous(x_end, level, noise)
         model_out = self.model(x, level, cond if self.model.self_condition else None)

@@ -10,7 +10,7 @@ measurements of `deg`'s operator, at the linear 1000-step betas.
 
 Protocol (one JSON object per line, the response mirrors the request `id`):
 
-  {"id": 1, "op": "ping"}
+  {"id": 1, "op": "ping"}                        # also the process's kernel launches
   {"id": 2, "op": "denoise", "npy": "/path/noisy.npy",
    "out": "/path/denoised.npy"}                  # (n,1,64,64) or NHWC, [-1,1];
                                                  # ddrm also (n, M) measurements
@@ -206,9 +206,14 @@ class DenoiseService:
 
     def _handle_locked(self, op, rid, req: dict, t0) -> dict:
         if op == "ping":
+            from hicdiff_tpu_torch.kernels.resblock import fused_resblock
+            from hicdiff_tpu_torch.kernels.sample_step import fused_posterior_step
+
             return {"id": rid, "ok": True, "op": "ping", "mode": self.mode,
                     "t_start": self.t_start, "batch": self.batch,
-                    "device": str(self.device)}
+                    "device": str(self.device),
+                    "launches": {"fused_resblock": fused_resblock.launches,
+                                 "fused_posterior_step": fused_posterior_step.launches}}
         if op == "denoise":
             x = np.load(req["npy"])
             out = self.denoise_patches(x)

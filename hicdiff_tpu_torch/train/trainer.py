@@ -1,4 +1,5 @@
-"""The training loop on one device (port of hicdiff_tpu/train/trainer.py).
+"""The training loop, on one device or data-parallel across processes
+(port of hicdiff_tpu/train/trainer.py).
 
 Any engine mode and any backbone of the registry: Adam at lr 2e-5 with
 optax's defaults (b1 0.9, b2 0.999, eps 1e-8), the L2
@@ -7,10 +8,20 @@ batch's samples, an optional EMA of the parameters, and best/final
 checkpoints in the JAX trainer's msgpack layout, so either package resumes
 the other's. What differs from the JAX trainer:
 
-  * one device, no mesh: a ragged last batch runs at its own size, as
-    eager PyTorch recompiles nothing, so no padding or weight mask is
+  * without a mesh, one device: a ragged last batch runs at its own size,
+    as eager PyTorch recompiles nothing, so no padding or weight mask is
     needed; the loss is the mean over the real samples, which is what the
     JAX trainer's masked weighted mean computes;
+  * with a mesh (`parallel.mesh.make_mesh`, one process a rank) of more
+    than one rank, the JAX trainer's data-parallel step: the global batch
+    is padded to a multiple of the world size with weight-0 rows, each rank
+    takes its rows, draws what the one-process step draws for the whole
+    batch's real rows and keeps its own, adds its part of
+    sum(per * w) / max(sum(w), 1), and the gradients and the loss are
+    summed over the ranks before Adam, so params, Adam state and EMA stay
+    equal on every rank; rank 0 alone writes checkpoints and logs, and a
+    resume broadcasts what rank 0 read. A mesh of one rank is the
+    one-device step, bit for bit, with no collective call;
   * per-step randomness (the step's timesteps, sr3 levels and noise)
     comes from a CPU `torch.Generator` seeded by (seed, step), and the val
     batches' from
@@ -34,6 +45,7 @@ from hicdiff_tpu_torch.convert import (
     params_to_jax,
 )
 from hicdiff_tpu_torch.diffusion.gaussian import GaussianDiffusion, to_device
+from hicdiff_tpu_torch.parallel import mesh as parallel
 from hicdiff_tpu_torch.train.checkpoint import checkpoint_name, load_checkpoint, save_checkpoint
 from hicdiff_tpu_torch.train.logging import MetricLogger
 
@@ -52,16 +64,23 @@ class Trainer:
     """Diffusion trainer bound to an engine; the model's parameters are
     trained in place."""
 
-    def __init__(self, engine: GaussianDiffusion, lr: float = 2e-5, ema_decay: float = 0.0):
+    def __init__(self, engine: GaussianDiffusion, lr: float = 2e-5, ema_decay: float = 0.0,
+                 mesh: Optional[parallel.Mesh] = None):
         """ema_decay > 0 keeps an exponential moving average of the
         parameters, saved with the checkpoints (off by default, as in the
-        JAX trainer and the reference, which has none)."""
+        JAX trainer and the reference, which has none). mesh: this rank's
+        data-parallel world; the model, on the mesh's device, starts from
+        rank 0's parameters."""
         self.engine = engine
         self.model = engine.model
         self.device = next(self.model.parameters()).device
+        self.mesh = mesh
+        if mesh is not None and self.device != mesh.device:
+            raise ValueError(f"the model is on {self.device}, the mesh's rank on {mesh.device}")
         self.ema_decay = ema_decay
         self.optimizer = torch.optim.Adam(self.model.parameters(), lr=lr, betas=(0.9, 0.999),
                                           eps=1e-8)
+        parallel.replicate(mesh, self.model)
         self.ema = self._param_copies() if ema_decay > 0 else None
         self.history: list[dict] = []
         # CUDA-event quadruples (start, loss, grads, update) of each step
@@ -123,12 +142,21 @@ class Trainer:
     def resume(self, path: str) -> int:
         """Load params and Adam state from a checkpoint of either package;
         returns its step, the `start_step` of `fit`. The EMA restarts from
-        the params when `fit` starts, as in the JAX trainer."""
-        ck = load_checkpoint(path, only={"params", "opt_state", "step"})
-        self.model.load_state_dict(params_from_jax(ck["params"]))
-        if ck.get("opt_state"):
-            self._load_adam(*adam_state_from_jax(ck["opt_state"]))
-        return int(ck.get("step") or 0)
+        the params when `fit` starts, as in the JAX trainer. With a mesh,
+        rank 0 reads the file and broadcasts what it read."""
+        step = 0
+        if parallel.is_main(self.mesh):
+            ck = load_checkpoint(path, only={"params", "opt_state", "step"})
+            self.model.load_state_dict(params_from_jax(ck["params"]))
+            if ck.get("opt_state"):
+                self._load_adam(*adam_state_from_jax(ck["opt_state"]))
+            step = int(ck.get("step") or 0)
+        if not parallel.sharded(self.mesh):
+            return step
+        parallel.replicate(self.mesh, self.model, self.optimizer)
+        count = torch.tensor([float(step)], device=self.device)
+        torch.distributed.broadcast(count, src=0, group=self.mesh.group)
+        return int(count.item())
 
     # -------------------------------------------------------------- steps
     def _loss(self, data, target, generator, t, noise, level=None) -> torch.Tensor:
@@ -143,6 +171,15 @@ class Trainer:
         cond = put(data) if self.engine.mode != "uncond" else None
         return self.engine.p_losses(cond, put(target), generator=generator, t=t, noise=noise,
                                     level=level)
+
+    def _shard_loss(self, data, target, generator) -> torch.Tensor:
+        """This rank's part of the global batch's weighted mean loss: the
+        batch padded to a multiple of the world size, the rank's rows, their
+        draws those of the whole batch (`p_losses(rows=)`)."""
+        rows, data, target, weights = parallel.shard_rows(self.mesh, data, target)
+        cond = data if self.engine.mode != "uncond" else None
+        per = self.engine.p_losses(cond, target, generator=generator, reduce=False, rows=rows)
+        return (per * weights).sum() / max(rows[1], 1)
 
     def _event(self, events: Optional[list]) -> None:
         if events is not None:
@@ -160,9 +197,17 @@ class Trainer:
         events = [] if self.time_steps and self.device.type == "cuda" else None
         self._event(events)
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self._loss(data, target, generator, t, noise, level)
+        if parallel.sharded(self.mesh):
+            if t is not None or noise is not None or level is not None:
+                raise ValueError("a sharded step draws from its generator; pass no t, noise "
+                                 "or level")
+            loss = self._shard_loss(data, target, generator)
+        else:
+            loss = self._loss(data, target, generator, t, noise, level)
         self._event(events)
         loss.backward()
+        if parallel.sharded(self.mesh):  # the whole batch's gradient and loss, on every rank
+            loss = parallel.reduce_step(self.mesh, self.model.parameters(), loss)
         self._event(events)
         self.optimizer.step()
         if self.ema is not None:
@@ -178,8 +223,13 @@ class Trainer:
 
     @torch.no_grad()
     def eval_loss(self, data, target, *, generator: torch.Generator) -> torch.Tensor:
-        """The loss of a batch without a step, as a device scalar."""
-        return self._loss(data, target, generator, None, None)
+        """The loss of a batch without a step, as a device scalar (with a
+        mesh, the weighted sum over the ranks)."""
+        if not parallel.sharded(self.mesh):
+            return self._loss(data, target, generator, None, None)
+        loss = self._shard_loss(data, target, generator).reshape(1)
+        parallel.all_reduce_(self.mesh, [loss])
+        return loss[0]
 
     def step_times_ms(self) -> list[tuple[float, float, float]]:
         """(loss forward, backward, update) ms of each timed step, by CUDA events."""
@@ -215,7 +265,9 @@ class Trainer:
         Returns the best val loss. start_step: the resume counter, which
         keeps the step draws those of the uninterrupted run.
         ckpt_throttle_s: least seconds between best-checkpoint writes; the
-        best state is kept on the device and always written at the end."""
+        best state is kept on the device and always written at the end.
+        With a mesh, every rank runs the loop and rank 0 alone keeps the
+        best state, writes the checkpoints and logs."""
         best_loss = float("inf")
         best_state = None
         last_ckpt_time = 0.0
@@ -223,6 +275,8 @@ class Trainer:
         step = start_step
         if self.ema is not None:
             self.ema = self._param_copies()
+        ckpt_dir = ckpt_dir if parallel.is_main(self.mesh) else None
+        logger = logger if parallel.is_main(self.mesh) else None
 
         def write_best():
             if ckpt_dir and best_state is not None:
@@ -250,7 +304,7 @@ class Trainer:
 
             if val_loss < best_loss:
                 best_loss = val_loss
-                best_state = self.snapshot(step)
+                best_state = self.snapshot(step) if ckpt_dir else None
                 now = time.time()
                 if now - last_ckpt_time >= ckpt_throttle_s:
                     write_best()

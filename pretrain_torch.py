@@ -30,7 +30,11 @@ Model_Weights/{bestg,finalg}_40000_c64_s64_{cell}_{model}_{engine}_{data}
 _l2_{sch}.msgpack in the JAX package's layout (either package resumes the
 other's with --resume), the JSONL log under logs/. The uncond engine trains
 a backbone without self-conditioning; cond and sr3 condition on the noisy
-patch.
+patch. Launched by torchrun (`torchrun --nproc-per-node N pretrain_torch.py
+...`) it trains data-parallel, as pretrain.py does over make_mesh(): a rank
+on cuda:LOCAL_RANK over NCCL, or `--device cuda:0 --dist-backend gloo` for
+ranks that share one card; rank 0 prepares the caches and writes the
+checkpoints and the log.
 """
 import argparse
 import os
@@ -43,6 +47,7 @@ import torch  # noqa: E402
 from hicdiff_tpu_torch.data.datamodule import HiCDataModule  # noqa: E402
 from hicdiff_tpu_torch.diffusion.gaussian import GaussianDiffusion  # noqa: E402
 from hicdiff_tpu_torch.models.zoo import DIFFUSION_BACKBONES as MODELS  # noqa: E402
+from hicdiff_tpu_torch.parallel.mesh import barrier, is_main, mesh_from_launcher  # noqa: E402
 from hicdiff_tpu_torch.train.logging import MetricLogger  # noqa: E402
 from hicdiff_tpu_torch.train.trainer import Trainer  # noqa: E402
 
@@ -72,6 +77,9 @@ def create_parser(argv=None):
                     help="sr3 engine only: draw the continuous noise level per sample instead "
                          "of the reference's one scalar t per optimizer step")
     ap.add_argument("--device", default="cuda", help="torch device to run on (default cuda)")
+    ap.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                    help="under torchrun: the collectives' backend (default nccl on CUDA, "
+                         "gloo on the CPU; gloo for ranks that share one card)")
     return ap.parse_args(argv)
 
 
@@ -81,7 +89,8 @@ def main(argv=None):
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     root = args.root or os.path.dirname(os.path.abspath(__file__))
-    device = torch.device(args.device)
+    mesh = mesh_from_launcher(args.device, args.dist_backend)
+    device = torch.device(args.device) if mesh is None else mesh.device
 
     percentile = 99.99 if args.data == "linear_sing" else None
     variant = "pure_noise" if args.data == "pure_noise" else "linear"
@@ -90,7 +99,9 @@ def main(argv=None):
         sigma_0=args.sigma, deg="deno", percentile=percentile, variant=variant,
         root=root, timestep=args.timestep, beta_schedule=args.schedule,
     )
-    dm.prepare_data()
+    if is_main(mesh):  # one writer of the caches
+        dm.prepare_data()
+    barrier(mesh)
     dm.setup("fit")
 
     self_cond = args.engine in ("cond", "sr3")
@@ -101,24 +112,29 @@ def main(argv=None):
         mode=args.engine, sr3_per_sample_t=args.sr3_per_sample_t,
     )
     tag = f"{args.model}_{args.engine}_{args.data}_l2_{args.schedule[:3]}"
+    trainer = Trainer(engine, lr=2e-5, mesh=mesh)
     logger = MetricLogger(
-        out_path=os.path.join(root, "logs", f"pretrain_{tag}_cell{args.celln}.jsonl"),
+        out_path=os.path.join(root, "logs", f"pretrain_{tag}_cell{args.celln}.jsonl")
+        if is_main(mesh) else None,
         run_name=f"{tag} cell_{args.celln}",
     )
-    trainer = Trainer(engine, lr=2e-5)
     start_step = 0
     if args.resume:
         start_step = trainer.resume(args.resume)
         print(f"resumed from {args.resume} at step {start_step}")
-    trainer.fit(
-        dm.train_dataloader(), dm.val_dataloader(), epochs=args.epoch, seed=args.seed,
-        logger=logger, start_step=start_step, ckpt_throttle_s=args.ckpt_throttle,
-        ckpt_dir=os.path.join(root, "Model_Weights"), ckpt_tag=tag,
-        ckpt_meta=dict(res=dm.res, chunk=64, cell_line=args.celline, cell_no=args.celln),
-        run_config=dict(sigma=args.sigma, schedule=args.schedule, mode=args.engine,
-                        timestep=args.timestep),
-    )
-    logger.close()
+    try:
+        trainer.fit(
+            dm.train_dataloader(), dm.val_dataloader(), epochs=args.epoch, seed=args.seed,
+            logger=logger, start_step=start_step, ckpt_throttle_s=args.ckpt_throttle,
+            ckpt_dir=os.path.join(root, "Model_Weights"), ckpt_tag=tag,
+            ckpt_meta=dict(res=dm.res, chunk=64, cell_line=args.celline, cell_no=args.celln),
+            run_config=dict(sigma=args.sigma, schedule=args.schedule, mode=args.engine,
+                            timestep=args.timestep),
+        )
+    finally:
+        logger.close()
+        if mesh is not None:
+            mesh.close()
     print("Pretraining is done !!!")
     return trainer
 

@@ -106,6 +106,38 @@ def test_posterior_step_kernel_matches_plain_and_draws_normals(cuda_device):
     assert torch.equal(noise, again) and not torch.equal(noise, other)
 
 
+@pytest.mark.parametrize("first,rows", [(32, 32), (7, 18), (63, 1), (0, 64)])
+def test_posterior_step_offset_draws_the_whole_batch_noise(cuda_device, first, rows):
+    """A shard of rows [first, first + rows) at offset first * 4096 / 4
+    equals the launch over the whole batch on those rows, bit for bit."""
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn(64, 64, 64, 1, generator=g).to(cuda_device)
+    eps = torch.randn(64, 64, 64, 1, generator=g).to(cuda_device)
+    whole = fused_posterior_step(x, eps, *STEP_SCALARS, 1.0, 21)
+    part = fused_posterior_step(x[first:first + rows].contiguous(),
+                                eps[first:first + rows].contiguous(), *STEP_SCALARS, 1.0, 21,
+                                offset=first * 4096 // 4)
+    for got, want in zip(part, whole):
+        assert torch.equal(got, want[first:first + rows])
+
+
+def test_two_gloo_ranks_on_one_card_match_one_rank(cuda_device, tmp_path):
+    """multihost.launch: two ranks sharing cuda:0 over gloo against one rank
+    (2 blocks x 128 features): losses within 1e-5, chain and DDRM outputs
+    within 1e-4, the weights' updates within lr / 10 but for one in 100,000
+    (each within 4 lr), every kernel launched in both runs."""
+    from hicdiff_tpu_torch.parallel import multihost
+
+    rec = multihost.launch(2, workdir=str(tmp_path), device="cuda:0", backend="gloo",
+                           blocks=2, features=128, batch=8, ragged=5,
+                           tol={"loss": 1e-5, "params": None, "sample": 1e-4, "ddrm": 1e-4,
+                                "update_outliers": 1e-5},
+                           timeout=600)
+    assert rec["ok"]
+    for launches in rec["launches"].values():
+        assert all(v for k, v in launches.items() if k != "fused_resblock_modes"), launches
+
+
 def test_backbone_kernel_path_matches_plain_path(cuda_device):
     """The same seeded weights on the card (kernels) and the CPU (plain)."""
     kw = dict(self_condition=True, number_resnet=2, features=128)

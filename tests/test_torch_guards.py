@@ -30,11 +30,12 @@ def test_port_imports_without_jax():
         "import threed_comp_torch, tools.torch_quartet_metrics\n"
         "import tools.torch_convert_checkpoint, tools.torch_export_checkpoint\n"
         "import tools.torch_make_fullscale_fixture, tools.torch_latent_target\n"
-        "import tools.torch_fullscale_quality\n"
+        "import tools.torch_fullscale_quality, distill_torch\n"
+        "import tools.torch_serve_concurrency_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'flax', 'optax', 'hicdiff_tpu', 'h5py', 'msgpack', 'sklearn'))\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 46, names\n"
+        "assert len(names) >= 50, names\n"
         "print(len(names))\n"
     )
     proc = subprocess.run(

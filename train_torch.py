@@ -19,6 +19,14 @@ checkpoint of either package resumes with --resume. The compute is fp32 with
 TF32 off, or bf16 with --bf16, as train.py's: the model computes in bf16
 (the residual blocks' forward and backward in the bf16 kernels), while the
 parameters, Adam state, EMA, loss and checkpoints stay fp32.
+
+Launched by torchrun, it trains data-parallel, one process a rank, as
+train.py does over make_mesh(): each rank on cuda:LOCAL_RANK over NCCL, or,
+for ranks that share one card, `--device cuda:0 --dist-backend gloo`:
+
+    torchrun --nproc-per-node 2 train_torch.py -u 0 -s 0.1 --root <dir>
+
+Rank 0 prepares the data caches, writes the checkpoints and the log.
 """
 import argparse
 import os
@@ -31,6 +39,7 @@ import torch  # noqa: E402
 from hicdiff_tpu_torch.data.datamodule import GSE130711Module, GSE131811Module  # noqa: E402
 from hicdiff_tpu_torch.diffusion.gaussian import GaussianDiffusion  # noqa: E402
 from hicdiff_tpu_torch.models.hicedrn import HicedrnDiff  # noqa: E402
+from hicdiff_tpu_torch.parallel.mesh import barrier, is_main, mesh_from_launcher  # noqa: E402
 from hicdiff_tpu_torch.train.logging import MetricLogger  # noqa: E402
 from hicdiff_tpu_torch.train.trainer import Trainer  # noqa: E402
 
@@ -69,6 +78,9 @@ def create_parser(argv=None):
                         help="exponential-moving-average decay for the params (0 disables; "
                              "saved in checkpoints, read by inference_torch.py --use-ema)")
     parser.add_argument("--device", default="cuda", help="torch device to run on (default cuda)")
+    parser.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                        help="under torchrun: the collectives' backend (default nccl on CUDA, "
+                             "gloo on the CPU; gloo for ranks that share one card)")
     return parser.parse_args(argv)
 
 
@@ -79,7 +91,7 @@ class HiCDiff:
     def __init__(self, epoch=500, timestep=1000, cell_Line="Human", cellNo=1, res=40000,
                  batch_size=64, piece_s=64, sigma=0.1, condition=True, deg="deno", root=None,
                  seed=0, bf16=False, schedule="linear", blocks=32, features=256, ema_decay=0.0,
-                 ckpt_throttle=0.0, device="cuda"):
+                 ckpt_throttle=0.0, device="cuda", mesh=None):
         self.epoch = epoch
         self.cell_line = cell_Line
         self.cell_no = cellNo
@@ -96,14 +108,16 @@ class HiCDiff:
         factory = GSE130711Module if cell_Line == "Human" else GSE131811Module
         dm = factory(single_cell=True, batch_size=batch_size, res=res, piece_size=piece_s,
                      cell_No=cellNo, sigma_0=sigma, deg=deg, root=root)
-        dm.prepare_data()
+        if is_main(mesh):  # one writer of the caches
+            dm.prepare_data()
+        barrier(mesh)
         dm.setup(stage="fit")
         # the normalization scale the weights are trained at, for serving
         self.run_config["percentile"] = float(dm.percentile)
         self.train_loader = dm.train_dataloader()
         self.val_loader = dm.val_dataloader()
 
-        device = torch.device(device)
+        device = torch.device(device) if mesh is None else mesh.device
         # train.py's inverted naming: condition=True is the UNconditional engine
         self.mode = "uncond" if condition else "cond"
         model = HicedrnDiff(self_condition=not condition, number_resnet=blocks,
@@ -112,10 +126,11 @@ class HiCDiff:
                             generator=torch.Generator().manual_seed(seed))
         self.engine = GaussianDiffusion.create(model, device=device, timesteps=timestep,
                                                beta_schedule=schedule, mode=self.mode)
-        self.trainer = Trainer(self.engine, lr=2e-5, ema_decay=ema_decay)
+        self.trainer = Trainer(self.engine, lr=2e-5, ema_decay=ema_decay, mesh=mesh)
         self.tag = f"HiCedrn_{'cond_' if self.mode == 'cond' else ''}l2_{schedule[:3]}"
+        log = os.path.join(root, "logs", f"train_{self.tag}_cell{cellNo}_s{sigma}.jsonl")
         self.logger = MetricLogger(
-            out_path=os.path.join(root, "logs", f"train_{self.tag}_cell{cellNo}_s{sigma}.jsonl"),
+            out_path=log if is_main(mesh) else None,
             run_name=f"hicedrn_Diff_{self.mode}_L2_{schedule} cell_{cellNo}",
         )
 
@@ -140,15 +155,21 @@ def main(argv=None):
     if not args.bf16:  # the convs and GEMMs around the fused blocks in fp32, not TF32
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = mesh_from_launcher(args.device, args.dist_backend)
     train_model = HiCDiff(
         epoch=args.epoch, timestep=args.timestep, batch_size=args.batch_size,
         cellNo=args.celln, cell_Line=args.celline, sigma=args.sigma,
         condition=bool(args.unspervised), root=args.root, seed=args.seed, bf16=args.bf16,
         schedule=args.schedule, blocks=args.blocks, features=args.features,
         ema_decay=args.ema_decay, ckpt_throttle=args.ckpt_throttle, device=args.device,
+        mesh=mesh,
     )
-    train_model.fit_model(resume=args.resume)
-    train_model.logger.close()
+    try:
+        train_model.fit_model(resume=args.resume)
+    finally:
+        train_model.logger.close()
+        if mesh is not None:
+            mesh.close()
     print("Training is done !!! ~~~~~")
 
 
