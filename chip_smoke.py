@@ -19,12 +19,12 @@ torch.profiler for the device-time breakdown. The host's enqueue time of one
 bf16 sampling step is split into the conv wrapper's share and the rest.
 Last, the phase `inference_cli` drives the port's `-u 0` CLI
 (`inference_torch.Inference`) on a synthetic Human cell whose contact lists
-it writes as text (no h5py on the card): the data module prepares the caches,
+it writes as text: the data module prepares the caches,
 seeded random weights go through the port's checkpoint writer and reader,
 and the full-width fp32 model denoises the test split (120 patches in two
 batches of 64), timed with the harness's phase split, with the quartet, the
-metrics and the launch counters checked; a second such run under the
-profiler gives the device breakdown; then a deterministic DDIM run is held
+metrics and the launch counters checked; the same run's profile gives the
+device breakdown; then a deterministic DDIM run is held
 to the plain path on the CPU on its first 8 patches and 8 more spread over
 both batches. Both kernels are also held to their plain versions at the
 CLI's batch of 64 (phases 2 and 3).
@@ -57,7 +57,7 @@ zero-noise chain of the full-width backbone at batch 2 on the card and on
 the CPU (deno truncated at t* = 27, inp_mask with 10 steps) within 1e-3;
 `inference_cli_ddrm` drives the -u 1 CLI over the 120-patch cell in fp32
 (deno --t-start auto, inp_mask --sampling-steps 10) with the quartet,
-metrics, launch counters and a profiled repeat; `serve_ddrm` serves 2+1
+metrics, launch counters and each run's profile; `serve_ddrm` serves 2+1
 requests from ddrm services in fp32 and bf16, then an inp_mask service
 answers a (8, 2048) measurement request and refuses a (8, 4096) one;
 `train_uncond` trains `train_torch.py -u 1` for one epoch and restores the
@@ -160,7 +160,18 @@ off returns every state (1e-4 of the largest), and the 30-step ancestral
 chain launches the posterior step once a step under pred_noise and never
 under pred_x0 or pred_v; then Unet1D, VAEModel and a learned-embedding Unet
 forward on the card within 1e-3 of the CPU's largest value, with no port
-kernel launched.
+kernel launched. Phase 16 (`data_parallel`, `distill`, `serve_concurrency`)
+trains and samples over two ranks sharing the card, distills, and serves
+two clients at once. Phase 17, `data_parallel_sampling`: the bf16 -u 0 and
+fp32 -u 1 CLIs (10 DDRM forwards) as two rank processes on the card (gloo)
+against one rank, within DP_TOL, every rank's launches counted; a bf16
+daemon of two ranks (rank 0 on the socket) against one, latency and idle
+share (each rank process profiles its daemon), shutdown ending both. Phase
+18, `mcool`:
+the full-scale cell (72,031 bins) written and read back through the port's
+HDF5 module, every chromosome fetched and timed; stage 1 from an .mcool
+byte-equal to the fixture tool's text; `denoise_mcool` and
+`--export-mcool` files read back equal to what they were made from.
 
 Times: `ms`, `plain_ms` and `library_ms` are CUDA-event times of back-to-back
 calls (device time plus any gaps where the device waits for the host);
@@ -335,6 +346,35 @@ def device_breakdown(ops):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     return busy_us, span_us, ours, [
         {"name": n[:90], "launches": k, "ms": t / 1e3, "share": t / busy_us} for n, (k, t) in top]
+
+
+@contextlib.contextmanager
+def profiled_run(out):
+    """Profile (device activity only) and time the CLI run in the block:
+    out["wall_s"] is its wall and out["prof"] the profile. The tracer costs a
+    CLI run about 1-3 % of its wall, so one run gives the timed numbers and
+    the device breakdown."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.2)  # as in serve_and_profile: let the tracer settle
+        tr = time.time()
+        yield out
+        torch.cuda.synchronize()
+        out["wall_s"] = time.time() - tr
+        time.sleep(0.2)
+    out["prof"] = prof
+
+
+def profiled_phase(phase_name, run, t0, out, metrics_s, card):
+    """The `{run}_profiled` line of a profiled_run: device busy time and the
+    idle share of the run's wall less the host's metrics (the device idles
+    through them, and the separate profiled run these lines once came from
+    left them out)."""
+    ops = device_ops(out["prof"])
+    busy_us, _, ours, top = device_breakdown(ops)
+    wall_s = out["wall_s"] - metrics_s
+    phase(phase_name, t0, run=f"{run}_profiled", profiled_wall_s=wall_s,
+          device_busy_s=busy_us / 1e6, idle_share_of_wall=1 - busy_us / 1e6 / wall_s,
+          device_launches=len(ops), kernels=ours, top=top, card=card)
 
 
 def profiled_ms(fn, iters=20, reps=1, timeline=False):
@@ -570,9 +610,9 @@ def cli_bf16_run(phase_name, run, dev, card, kw, want_launches):
     """The CLI run of `kw` again with --bf16 (`inference_torch.Inference(bf16=
     True)`): launch counters (`want_launches`, those of the fp32 run: the
     same kernels a step), the quartet's prediction finite, the metrics,
-    wall time and patches/s with the harness's split; then a profiled
-    repeat for the idle share and the device breakdown. Returns the counted
-    run's result."""
+    wall time and patches/s with the harness's split; the same run's
+    profile gives the idle share and the device breakdown. Returns the run's
+    result."""
     import inference_torch
     from hicdiff_tpu_torch.kernels.resblock import fused_resblock
     from hicdiff_tpu_torch.kernels.sample_step import fused_posterior_step
@@ -580,9 +620,9 @@ def cli_bf16_run(phase_name, run, dev, card, kw, want_launches):
     fused_resblock.launches = 0
     fused_posterior_step.launches = 0
     tr = time.time()
-    res = inference_torch.Inference(device=dev, bf16=True, out_tag="_bf16", **kw)
-    torch.cuda.synchronize()
-    wall_s = time.time() - tr
+    with profiled_run({}) as run_p:
+        res = inference_torch.Inference(device=dev, bf16=True, out_tag="_bf16", **kw)
+    wall_s = run_p["wall_s"]
     launches = dict(resblock_launches=fused_resblock.launches,
                     step_launches=fused_posterior_step.launches)
     check(launches == want_launches, f"{phase_name} {run} bf16 launches {launches} != "
@@ -600,19 +640,7 @@ def cli_bf16_run(phase_name, run, dev, card, kw, want_launches):
           patches_per_s=n / wall_s, setup_s=tm["setup"], dispatch_s=tm["dispatch"],
           fetch_s=tm["fetch"], metrics_s=tm["metrics"], save_s=tm["save"], **launches,
           metrics=metrics, predict_abs_max=float(np.abs(pred).max()), card=card)
-    tr = time.time()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        time.sleep(0.2)  # as in serve_and_profile: let the tracer settle
-        tp = time.time()
-        inference_torch.Inference(device=dev, bf16=True, compute_metrics=False,
-                                  out_tag="_bf16_profiled", **kw)
-        torch.cuda.synchronize()
-        profiled_s = time.time() - tp
-        time.sleep(0.2)
-    busy_us, _, ours, top = device_breakdown(device_ops(prof))
-    phase(phase_name, tr, run=f"{run}_bf16_profiled", profiled_wall_s=profiled_s,
-          device_busy_s=busy_us / 1e6, idle_share_of_wall=1 - busy_us / 1e6 / profiled_s,
-          kernels=ours, top=top, card=card)
+    profiled_phase(phase_name, f"{run}_bf16", time.time(), run_p, tm["metrics"], card)
     return res
 
 
@@ -652,10 +680,9 @@ def inference_cli(dev, card):
         os.environ["HICDIFF_EVAL_TIMING"] = "1"
         fused_resblock.launches = 0
         fused_posterior_step.launches = 0
-        tr = time.time()
-        res = inference_torch.Inference(device=dev, **kw)
-        torch.cuda.synchronize()
-        wall_s = time.time() - tr
+        with profiled_run({}) as run_p:
+            res = inference_torch.Inference(device=dev, **kw)
+        wall_s = run_p["wall_s"]
         resblock_launches, step_launches = fused_resblock.launches, fused_posterior_step.launches
         n = len(res["inds"])
         batches = -(-n // CLI_BATCH)
@@ -688,22 +715,8 @@ def inference_cli(dev, card):
               metrics_s_per_batch=tm["metrics_per_batch"],
               resblock_launches=resblock_launches, posterior_step_launches=step_launches,
               metrics=metrics, card=card)
-
-        # the same run again under the profiler, for the device breakdown only
-        tr = time.time()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            time.sleep(0.2)  # as in serve_and_profile: let the tracer settle
-            tp = time.time()
-            res_p = inference_torch.Inference(device=dev, **kw)
-            torch.cuda.synchronize()
-            profiled_s = time.time() - tp
-            time.sleep(0.2)
-        check(res_p["predict"].shape == res["predict"].shape, "inference_cli: profiled run")
-        busy_us, _, ours, top = device_breakdown(device_ops(prof))
-        busy_s = busy_us / 1e6
-        phase("inference_cli", tr, run="default_profiled", profiled_wall_s=profiled_s,
-              device_busy_s=busy_s, idle_share_of_wall=1 - busy_s / profiled_s, kernels=ours,
-              top=top, card=card)
+        # the same run's device breakdown
+        profiled_phase("inference_cli", "default", time.time(), run_p, tm["metrics"], card)
 
         # run 2: deterministic (DDIM, eta 0), held to the plain path on the CPU on
         # the first 8 patches and 8 more spread over both batches' M-tiles
@@ -1885,9 +1898,9 @@ def inference_cli_ddrm(dev, card):
             fused_resblock.launches = 0
             fused_posterior_step.launches = 0
             tr = time.time()
-            res = inference_torch.Inference(device=dev, deg=deg, **kw, **extra)
-            torch.cuda.synchronize()
-            wall_s = time.time() - tr
+            with profiled_run({}) as run_p:
+                res = inference_torch.Inference(device=dev, deg=deg, **kw, **extra)
+            wall_s = run_p["wall_s"]
             resblock_launches = fused_resblock.launches
             step_launches = fused_posterior_step.launches
             n = len(res["inds"])
@@ -1921,22 +1934,8 @@ def inference_cli_ddrm(dev, card):
                   resblock_launches=resblock_launches, posterior_step_launches=step_launches,
                   metrics=metrics, predict_abs_max=float(np.abs(pred).max()), card=card)
             counts[deg] = dict(resblock_launches=resblock_launches, step_launches=step_launches)
-
-            # the same run again under the profiler, for the device breakdown only
-            tr = time.time()
-            with torch.profiler.profile(
-                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                time.sleep(0.2)  # as in serve_and_profile: let the tracer settle
-                tp = time.time()
-                inference_torch.Inference(device=dev, deg=deg, compute_metrics=False,
-                                          out_tag="_profiled", **kw, **extra)
-                torch.cuda.synchronize()
-                profiled_s = time.time() - tp
-                time.sleep(0.2)
-            busy_us, _, ours, top = device_breakdown(device_ops(prof))
-            phase("inference_cli_ddrm", tr, run=f"{deg}_profiled", profiled_wall_s=profiled_s,
-                  device_busy_s=busy_us / 1e6, idle_share_of_wall=1 - busy_us / 1e6 / profiled_s,
-                  kernels=ours, top=top, card=card)
+            # the same run's device breakdown
+            profiled_phase("inference_cli_ddrm", deg, time.time(), run_p, tm["metrics"], card)
             if deg == "deno":  # the -u 1 default with --bf16
                 cli_bf16_run("inference_cli_ddrm", deg, dev, card, dict(deg=deg, **kw, **extra),
                              counts[deg])
@@ -2109,8 +2108,8 @@ def inference_cli_zoo(dev, card):
     layout under the tag the CLI looks for (no --weights): -u 0 hicedrn_sr3
     (the sr3 engine's truncated ancestral chain, t* = 29), -u 0 unet (the
     cond engine's chain), -u 1 hicedrn_att (DDRM deno, t* = 27). Each: the
-    quartet, the metrics, the launch counters, then a profiled repeat for the
-    idle share and top kernels. Last, a deterministic -u 0 hicedrn_sr3 run
+    quartet, the metrics, the launch counters, and the same run's profile
+    for the idle share and top kernels. Last, a deterministic -u 0 hicedrn_sr3 run
     (DDIM, 2 steps) held to the CPU plain path on 16 patches. Returns the
     launch counts of each run."""
     import inference_torch
@@ -2151,10 +2150,9 @@ def inference_cli_zoo(dev, card):
                       t_start="auto", model_name=name, **extra)
             fused_resblock.launches = 0
             fused_posterior_step.launches = 0
-            tw = time.time()
-            res = inference_torch.Inference(device=dev, **kw)
-            torch.cuda.synchronize()
-            wall_s = time.time() - tw
+            with profiled_run({}) as run_p:
+                res = inference_torch.Inference(device=dev, **kw)
+            wall_s = run_p["wall_s"]
             resblock_launches, step_launches = (fused_resblock.launches,
                                                 fused_posterior_step.launches)
             n = len(res["inds"])
@@ -2187,21 +2185,8 @@ def inference_cli_zoo(dev, card):
                   resblock_launches=resblock_launches, posterior_step_launches=step_launches,
                   metrics=metrics, card=card)
             counts[run] = dict(resblock_launches=resblock_launches, step_launches=step_launches)
-
-            tr = time.time()
-            with torch.profiler.profile(
-                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                time.sleep(0.2)  # as in serve_and_profile: let the tracer settle
-                tp = time.time()
-                inference_torch.Inference(device=dev, compute_metrics=False,
-                                          out_tag="_profiled", **kw)
-                torch.cuda.synchronize()
-                profiled_s = time.time() - tp
-                time.sleep(0.2)
-            busy_us, _, ours, top = device_breakdown(device_ops(prof))
-            phase("inference_cli_zoo", tr, run=f"{run}_profiled", profiled_wall_s=profiled_s,
-                  device_busy_s=busy_us / 1e6, idle_share_of_wall=1 - busy_us / 1e6 / profiled_s,
-                  device_launches=len(device_ops(prof)), kernels=ours, top=top, card=card)
+            # the same run's device breakdown
+            profiled_phase("inference_cli_zoo", run, time.time(), run_p, tm["metrics"], card)
 
         # deterministic: -u 0 hicedrn_sr3, DDIM eta 0, 2 steps, against the CPU plain path
         tr = time.time()
@@ -3539,6 +3524,508 @@ def serve_concurrency(dev, card):
           ddrm=rec["ddrm"], cond=rec["cond"], byte_equal=True, card=card)
     return {name: rec[name]["launches_concurrent"] for name in ("ddrm", "cond")}
 
+# ---- phase 17: the CLIs' and the daemon's sampling over ranks; phase 18: .mcool files
+DPS_REQUESTS = 2  # the daemons' timed requests of TRAIN_BATCH patches each
+DPS_DDRM_STEPS = 10  # the -u 1 CLIs' DDRM forwards: the auto t* grid cut to 10 (depth)
+_LAUNCH_LINE = "kernel launches, rank "
+
+
+def _eval_timing(log):
+    """[(dispatch s, fetch s)] of each rank's '[eval-timing] N batches' line."""
+    out = []
+    for line in log.splitlines():
+        if "[eval-timing]" in line and "batches:" in line:
+            parts = dict(p.strip().split(" ")[:2]
+                         for p in line.split("batches:", 1)[1].split(","))
+            out.append((float(parts["dispatch"][:-1]), float(parts["fetch"][:-1])))
+    return out
+
+
+@contextlib.contextmanager
+def _entry_tf32(bf16):
+    """TF32 as inference_torch.py's and serve_torch.py's main set it (cuDNN's
+    TF32 on only under --bf16, matmuls' off), so that a run in this process
+    is the entry point's run."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = bf16, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _rank_env(rank, world):
+    """torchrun's environment of a rank (the rendezvous port set by the rank)."""
+    return dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
+                LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost")
+
+
+def _union_us(intervals, lo, hi):
+    """The time in [lo, hi) that the union of (start, end) intervals covers."""
+    total, reach = 0.0, lo
+    for a, b in sorted(intervals):
+        a, b = max(a, reach), min(b, hi)
+        if b > a:
+            total += b - a
+            reach = b
+    return total
+
+
+def _daemon_requests(sock, work, tag):
+    """DPS_REQUESTS denoise requests of TRAIN_BATCH seeded patches on `sock`:
+    (latencies, outputs, the requests' window in Unix time, µs)."""
+    from hicdiff_tpu_torch.serve import request
+
+    rng = np.random.default_rng(17)
+    latencies, outs = [], []
+    window = [time.time() * 1e6, None]
+    for i in range(DPS_REQUESTS):
+        src = os.path.join(work, f"req_{i}.npy")
+        if not os.path.exists(src):
+            np.save(src, np.clip(rng.normal(0, 0.3, (TRAIN_BATCH, 64, 64, 1)), -1, 1)
+                    .astype(np.float32))
+        dst = os.path.join(work, f"{tag}_out_{i}.npy")
+        tr = time.time()
+        resp = request(sock, {"id": i + 1, "op": "denoise", "npy": src, "out": dst})
+        latencies.append(time.time() - tr)
+        check(resp.get("ok"), f"data_parallel_sampling {tag} request {i}: {resp}")
+        outs.append(np.load(dst))
+    window[1] = time.time() * 1e6
+    return latencies, outs, window
+
+
+# one rank process of data_parallel_sampling: each entry point's main in turn,
+# as torchrun would start it (its own rendezvous port, TF32 at torch's
+# defaults as a fresh process finds them, the launch counters from 0); the
+# daemon runs under torch.profiler (device activity only), and the rank
+# writes its kernels' (start, end, name) on the host's clock (Unix time, µs)
+# to argv[2].rank{RANK}.json
+_DPS_RANK = """
+import json, os, sys
+import torch
+from torch.autograd import DeviceType
+import inference_torch, serve_torch
+from hicdiff_tpu_torch.kernels.resblock import fused_resblock
+from hicdiff_tpu_torch.kernels.sample_step import fused_posterior_step
+
+for port, entry, argv in json.loads(sys.argv[1]):
+    os.environ["MASTER_PORT"] = str(port)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    fused_resblock.launches = fused_posterior_step.launches = 0
+    if entry == "inference":
+        inference_torch.main(argv)
+        continue
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        serve_torch.main(argv)
+    base = prof.profiler.kineto_results.trace_start_ns() / 1e3
+    with open(f"{sys.argv[2]}.rank{os.environ['RANK']}.json", "w") as f:
+        json.dump([(base + e.time_range.start, base + e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA], f)
+"""
+
+
+def data_parallel_sampling(dev, card):
+    """Phase 17 `data_parallel_sampling`: the CLIs and the daemon over two
+    ranks sharing the card (gloo), full width, on the 120-patch synthetic
+    cell. One rank, in this process: the -u 0 CLI in bf16 at --t-start auto
+    and the -u 1 CLI (DDRM deno, t* auto on a grid of DPS_DDRM_STEPS) in fp32
+    (`inference_torch.Inference`), and a bf16 -u 0 daemon at batch 64
+    answering DPS_REQUESTS requests of 64 patches. Two ranks: one pair of
+    processes started with torchrun's environment runs inference_torch.py's
+    and serve_torch.py's main in turn (the same flags; the daemon under
+    torch.profiler, rank 0 on the socket). The CLIs' predictions and the daemon's outputs within DP_TOL; the quartet
+    written once (by rank 0); every rank's blocks and steps through the
+    kernels by its launch counters; latency, and the idle share of the
+    requests' wall (for two ranks, the union of both ranks' busy intervals
+    from their traces: a profiler sees one process, and the card
+    time-slices two processes' kernels, whose durations then overlap);
+    `shutdown` ends both ranks with exit code 0. Returns the launch counts
+    by run and rank."""
+    import inference_torch
+    from hicdiff_tpu_torch.convert import params_to_jax
+    from hicdiff_tpu_torch.kernels.resblock import fused_resblock
+    from hicdiff_tpu_torch.kernels.sample_step import fused_posterior_step
+    from hicdiff_tpu_torch.models.hicedrn import HicedrnDiff
+    from hicdiff_tpu_torch.parallel.multihost import free_port
+    from hicdiff_tpu_torch.serve import DenoiseService, request, serve_forever
+    from hicdiff_tpu_torch.train.checkpoint import save_checkpoint
+
+    t0 = time.time()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="smoke_dps_", dir=os.path.join(ROOT, "build"))
+    # both ranks on this process's card, over gloo
+    rank_dev = f"cuda:{torch.cuda.current_device()}" if dev.type == "cuda" else str(dev)
+    width = ["--blocks", str(BLOCKS), "--features", str(FEATURES)]
+    counts = {}
+    try:
+        write_synthetic_cell(
+            root, lambda c: CLI_TEST_BINS if c in CLI_TEST_CHROMS else CLI_OTHER_BINS)
+        ckpts = {}
+        for mode, schedule, seed in (("cond", "sigmoid", 2), ("uncond", "linear", 7)):
+            model = HicedrnDiff(self_condition=mode == "cond", number_resnet=BLOCKS,
+                                features=FEATURES, device="cpu",
+                                generator=torch.Generator().manual_seed(seed))
+            ckpts[mode] = os.path.join(root, "Model_Weights", f"{mode}.msgpack")
+            save_checkpoint(ckpts[mode], params_to_jax(model.state_dict()), run_config=dict(
+                sigma=SIGMA, schedule=schedule, mode=mode, timestep=1000, percentile=99.0))
+            del model
+        cli_runs = (("u0_bf16", False, True, "sigmoid", [], DP_TOL[True]["sample"], 30),
+                    ("u1_deno_fp32", True, False, "linear",
+                     ["--deg", "deno", "--sampling-steps", str(DPS_DDRM_STEPS)],
+                     DP_TOL[False]["ddrm"], DPS_DDRM_STEPS))
+
+        # one rank, in this process: the two CLIs, then the daemon
+        one = {}
+        for run, condition, bf16, schedule, _, _, steps in cli_runs:
+            tr = time.time()
+            fused_resblock.launches = 0
+            fused_posterior_step.launches = 0
+            with _entry_tf32(bf16):
+                res = inference_torch.Inference(
+                    batch_size=CLI_BATCH, sigma_t=SIGMA, condition=condition, root=root,
+                    schedule=schedule, timestep=1000, bf16=bf16,
+                    weights=ckpts["uncond" if condition else "cond"], t_start="auto",
+                    blocks=BLOCKS, features=FEATURES, compute_metrics=False, out_tag="_r1",
+                    device=dev, deg="deno", sampling_steps=steps if condition else None)
+                torch.cuda.synchronize()
+            one[run] = dict(res=res, wall_s=time.time() - tr, launches={
+                "fused_resblock": fused_resblock.launches,
+                "fused_posterior_step": fused_posterior_step.launches})
+        work = os.path.join(root, "serve")
+        os.makedirs(work)
+        with _entry_tf32(True):
+            service = DenoiseService(ckpts["cond"], device=dev, mode="cond", sigma=SIGMA,
+                                     batch=TRAIN_BATCH, bf16=True, blocks=BLOCKS,
+                                     features=FEATURES)
+            sock = os.path.relpath(os.path.join(work, "one.sock"))
+            server = threading.Thread(target=serve_forever, args=(service, sock), daemon=True)
+            server.start()
+            for _ in range(200):
+                if os.path.exists(sock):
+                    break
+                time.sleep(0.05)
+            check(request(sock, {"id": 0, "op": "ping"}).get("ok"), "one-rank daemon ping")
+            fused_resblock.launches = 0
+            fused_posterior_step.launches = 0
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                lat1, out1, _ = _daemon_requests(sock, work, "one")
+                torch.cuda.synchronize()
+        daemon_one = {"fused_resblock": fused_resblock.launches,
+                      "fused_posterior_step": fused_posterior_step.launches}
+        busy1 = sum(d for _, _, d in device_ops(prof)) / 1e6
+        check(request(sock, {"id": 9, "op": "shutdown"}).get("ok"), "one-rank daemon shutdown")
+        server.join(timeout=60)
+        del service
+        held_gb = release_device_memory()
+
+        # two ranks: one pair of processes runs the two CLIs, then the daemon
+        sock2 = os.path.relpath(os.path.join(work, "two.sock"))
+        trace = os.path.join(work, "trace")
+        entries = [(free_port(), "inference",
+                    ["-u", "1" if condition else "0", "-s", str(SIGMA), "--schedule", schedule,
+                     "--t-start", "auto", "-b", str(CLI_BATCH), "--root", root,
+                     "--weights", ckpts["uncond" if condition else "cond"], "--no-metrics",
+                     "--out-tag", "_r2", "--device", rank_dev, "--dist-backend", "gloo",
+                     *width, *extra, *(["--bf16"] if bf16 else [])])
+                   for _, condition, bf16, schedule, extra, _, _ in cli_runs]
+        entries.append((free_port(), "serve",
+                        ["--socket", sock2, "--weights", ckpts["cond"], "-u", "0", "-s",
+                         str(SIGMA), "--t-start", "auto", "--batch", str(TRAIN_BATCH), "--bf16",
+                         "--device", rank_dev, "--dist-backend", "gloo", *width]))
+        logs = [os.path.join(work, f"rank{r}.log") for r in range(DP_RANKS)]
+        tp = time.time()
+        procs = []
+        for r in range(DP_RANKS):
+            with open(logs[r], "w") as fh:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", _DPS_RANK, json.dumps(entries), trace], cwd=ROOT,
+                    env=dict(_rank_env(r, DP_RANKS), HICDIFF_EVAL_TIMING="1"), stdout=fh,
+                    stderr=subprocess.STDOUT))
+        try:
+            while not os.path.exists(sock2):
+                check(time.time() - tp < 600 and all(p.poll() is None for p in procs),
+                      "two ranks: the CLIs or the daemon did not start: " + " | ".join(
+                          open(log).read()[-1500:] for log in logs))
+                time.sleep(0.1)
+            clis_s = time.time() - tp
+            ping = request(sock2, {"id": 0, "op": "ping"})
+            check(ping.get("ok") and ping["world_size"] == DP_RANKS
+                  and ping["batch"] == TRAIN_BATCH, f"two-rank daemon ping: {ping}")
+            lat2, out2, window = _daemon_requests(sock2, work, "two")
+            check(request(sock2, {"id": 9, "op": "shutdown"}).get("ok"), "two-rank shutdown")
+            codes = [p.wait(timeout=120) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        pair_s = time.time() - tp
+        check(codes == [0] * DP_RANKS, f"two ranks' exit codes {codes}")
+        texts = [open(log).read() for log in logs]
+        # per rank: the launch lines of the -u 0 CLI, the -u 1 CLI and the daemon
+        ranks = [[json.loads(line.split(": ", 1)[1]) for line in text.splitlines()
+                  if _LAUNCH_LINE in line] for text in texts]
+        timing = [_eval_timing(text) for text in texts]
+        cli_s = [float(line.split(" in ")[1].split("s,")[0]) for line in texts[0].splitlines()
+                 if line.startswith("inference is done in ")]
+        check(all(len(r) == 3 for r in ranks) and len(cli_s) == 2
+              and all(len(t) == 2 for t in timing),
+              f"two ranks' logs: launches {ranks}, cli_s {cli_s}, timing {timing}")
+
+        for i, (run, condition, bf16, _, _, bar, steps) in enumerate(cli_runs):
+            res = one[run]["res"]
+            n = len(res["inds"])
+            batches = -(-n // CLI_BATCH)
+            want = {"fused_resblock": batches * steps * BLOCKS * 2,
+                    "fused_posterior_step": 0 if condition else batches * steps}
+            by_rank = {f"rank{r}": ranks[r][i] for r in range(DP_RANKS)}
+            check(one[run]["launches"] == want and all(c == want for c in by_rank.values()),
+                  f"data_parallel_sampling {run}: one rank {one[run]['launches']}, two "
+                  f"{by_rank}, want {want} each")
+            p1 = np.load(os.path.join(res["outdir"], "predict.npy"))
+            p2 = np.load(os.path.join(res["outdir"][:-len("_r1")] + "_r2", "predict.npy"))
+            err = float(np.abs(p1 - p2).max())
+            check(p1.shape == p2.shape == (n, 1, 64, 64) and np.isfinite(p2).all()
+                  and err <= bar, f"data_parallel_sampling {run}: max diff {err} > {bar}")
+            check(texts[0].count("outputs:") == 2 and "outputs:" not in texts[1],
+                  f"data_parallel_sampling {run}: the quartet not written by rank 0 alone")
+            counts[run] = {"one_rank": one[run]["launches"], **by_rank}
+            phase("data_parallel_sampling", t0 if i == 0 else tp, run=run, ranks=DP_RANKS,
+                  backend="gloo", device=f"{rank_dev} (both ranks)",
+                  dtype="bfloat16" if bf16 else "float32", blocks=BLOCKS, features=FEATURES,
+                  batch=CLI_BATCH, patches=n, steps=steps, max_abs_diff=err, tol=bar,
+                  largest=float(np.abs(p1).max()), launches=counts[run],
+                  one_rank_in_process_s=one[run]["wall_s"],
+                  one_rank_sampling_s=res["timing"]["dispatch"] + res["timing"]["fetch"],
+                  two_rank_cli_s=cli_s[i], two_rank_sampling_s=[t[i][0] + t[i][1]
+                                                                for t in timing],
+                  card=card)
+
+        # each rank's kernels inside the requests' window (its warm-up and
+        # idle keepalives lie outside it)
+        spans = [[(max(a, window[0]), min(b, window[1]), name)
+                  for a, b, name in json.load(open(f"{trace}.rank{r}.json"))
+                  if b > window[0] and a < window[1]] for r in range(DP_RANKS)]
+        # the ranks' kernels are time-sliced on the card: their durations
+        # overlap, so the busy time is the union of both ranks' intervals
+        busy2 = _union_us([(a, b) for ss in spans for a, b, _ in ss], *window) / 1e6
+        per_rank = [_union_us([(a, b) for a, b, _ in ss], *window) / 1e6 for ss in spans]
+        # the ranks' clocks are the host's: each rank's work lies inside the window
+        check(all(b > 0 for b in per_rank) and busy2 * 1e6 <= window[1] - window[0],
+              f"data_parallel_sampling daemon: busy by rank {per_rank}, union {busy2} s")
+        tops = []
+        for ss in spans:
+            by_name = {}
+            for a, b, name in ss:
+                count, us = by_name.get(name, (0, 0.0))
+                by_name[name] = (count + 1, us + b - a)
+            tops.append([{"name": k[:90], "count": c, "us": us} for k, (c, us)
+                         in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:4]])
+        # each rank's daemon counts: its launch line less the warm-up's chunk
+        chunk = {"fused_resblock": 30 * BLOCKS * 2, "fused_posterior_step": 30}
+        rank_counts = {f"rank{r}": {k: ranks[r][2][k] - chunk[k] for k in chunk}
+                       for r in range(DP_RANKS)}
+        want = {k: DPS_REQUESTS * chunk[k] for k in chunk}
+        check(daemon_one == want and all(c == want for c in rank_counts.values()),
+              f"data_parallel_sampling daemon launches: one {daemon_one}, two {rank_counts}")
+        bar = DP_TOL[True]["sample"]
+        errs = [float(np.abs(a - b).max()) for a, b in zip(out1, out2)]
+        check(max(errs) <= bar, f"data_parallel_sampling daemon: max diff {errs} > {bar}")
+        counts["daemon_bf16"] = {"one_rank": daemon_one, **rank_counts}
+        phase("data_parallel_sampling", tp, run="daemon_bf16", ranks=DP_RANKS,
+              backend="gloo", batch=TRAIN_BATCH, steps=30, requests=DPS_REQUESTS,
+              max_abs_diff=errs, tol=bar, latency_s_one_rank=lat1, latency_s_two_ranks=lat2,
+              device_busy_s_one_rank=busy1, device_busy_s_two_ranks=busy2,
+              idle_share_one_rank=1 - busy1 / sum(lat1),
+              idle_share_two_ranks=1 - busy2 * 1e6 / (window[1] - window[0]),
+              two_rank_window_s=(window[1] - window[0]) / 1e6,
+              device_busy_s_by_rank=per_rank,
+              device_time_s_by_rank=[sum(b - a for a, b, _ in ss) / 1e6 for ss in spans],
+              two_rank_start_to_socket_s=clis_s, two_rank_pair_s=pair_s, exit_codes=codes,
+              launches=counts["daemon_bf16"], smoke_process_allocated_gb=held_gb,
+              top_two_ranks=tops, card=card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
+def mcool_phase(dev, card):
+    """Phase 18 `mcool`: .mcool files through the port's HDF5 module on the
+    card's machine (no h5py). The full-scale fixture's cell (hg19's 22
+    chromosomes, 72,031 bins at 40 kb, tools/torch_make_fullscale_fixture.py
+    seed 7) written with write_cooler, read back by McoolFile, every
+    chromosome fetched (timed) and held equal to the arrays written. At 512
+    bins a chromosome: stage 1 (`extract_constraint_mats`) from the tool's
+    .mcool writes Constraints/ text byte-equal to the tool's direct text; a
+    `denoise_mcool` request to a bf16 DenoiseService (DDIM K=1, so the same
+    patches give the same output) writes an .mcool that reads back equal to
+    `assemble_chromosome` of `denoise_patches` through `to_unit`; the bf16
+    -u 0 CLI (K=1) from the .mcool's cache with --export-mcool writes a file
+    the reader opens, equal to its dense export. Returns launch counts."""
+    import filecmp
+
+    import inference_torch
+    from hicdiff_tpu_torch.convert import params_to_jax
+    from hicdiff_tpu_torch.data.assemble import assemble_chromosome, to_unit
+    from hicdiff_tpu_torch.data.datamodule import GSE130711Module
+    from hicdiff_tpu_torch.data.mcool import McoolFile, write_cooler
+    from hicdiff_tpu_torch.data.preprocess import coo_to_dense, normalize_matrix, split_pieces
+    from hicdiff_tpu_torch.kernels.resblock import fused_resblock
+    from hicdiff_tpu_torch.kernels.sample_step import fused_posterior_step
+    from hicdiff_tpu_torch.models.hicedrn import HicedrnDiff
+    from hicdiff_tpu_torch.serve import DenoiseService
+    from hicdiff_tpu_torch.train.checkpoint import save_checkpoint
+    from tools.torch_make_fullscale_fixture import (
+        HG19_BINS_40KB,
+        cell_pixels,
+        constraints_dir,
+        make_fullscale,
+        make_fullscale_mcool,
+    )
+
+    t0 = time.time()
+    res = 40000
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="smoke_mcool_", dir=os.path.join(ROOT, "build"))
+    launches = {}
+    try:
+        # 1. the full-scale cell: write, open, fetch every chromosome
+        weights, chroms = cell_pixels(seed=7)
+        pixels = [(r, c, v) for r, c, v, _ in chroms]
+        offsets = np.concatenate([[0], np.cumsum(HG19_BINS_40KB)])
+        bin1 = np.concatenate([r + o for (r, _, _), o in zip(pixels, offsets)])
+        bin2 = np.concatenate([c + o for (_, c, _), o in zip(pixels, offsets)])
+        count = np.concatenate([v for _, _, v in pixels])
+        gen_s = time.time() - t0
+        path = os.path.join(root, "fullscale.mcool")
+        tw = time.time()
+        write_cooler(path, res, [f"chr{i + 1}" for i in range(22)], HG19_BINS_40KB,
+                     bin1, bin2, count, weights)
+        write_s = time.time() - tw
+        to = time.time()
+        mc = McoolFile(path, res)
+        open_s = time.time() - to
+        check(mc.chromnames == [f"chr{i + 1}" for i in range(22)]
+              and mc.chromsizes.tolist() == [n * res for n in HG19_BINS_40KB],
+              f"mcool: chromosomes {mc.chromnames}")
+        fetch_s = []
+        for ci, (r, c, v) in enumerate(pixels):
+            tf = time.time()
+            px = mc.fetch(f"chr{ci + 1}")
+            fetch_s.append(time.time() - tf)
+            w = weights[offsets[ci]:offsets[ci + 1]]
+            want = np.nan_to_num(v.astype(np.float64) * w[r] * w[c], nan=0.0)
+            check(np.array_equal(px.start1, r * res) and np.array_equal(px.start2, c * res)
+                  and np.array_equal(px.count, v.astype(np.float64))
+                  and np.array_equal(px.balanced, want), f"mcool: chr{ci + 1} differs")
+        n_full = len(bin1)
+        del pixels, bin1, bin2, count
+        phase("mcool", t0, run="fullscale_write_read", bins=int(offsets[-1]),
+              pixels=n_full, file_bytes=os.path.getsize(path),
+              generate_s=gen_s, write_s=write_s, open_s=open_s, fetch_s=fetch_s,
+              fetch_total_s=sum(fetch_s), equal=True, card=card)
+
+        # 2. stage 1 at 512 bins a chromosome: byte-equal to the tool's text
+        tr = time.time()
+        bins = [FULLSCALE_BINS] * 22
+        text = constraints_dir(os.path.join(root, "text"), SIGMA, 99.99)
+        make_fullscale(text, seed=7, bins_per_chrom=bins)
+        mroot = os.path.join(root, "cell")
+        mpath = os.path.join(mroot, "Datasets", "Human", "cell1_fixture.mcool")
+        n_bins, n_pixels = make_fullscale_mcool(mpath, seed=7, bins_per_chrom=bins)
+        ts = time.time()
+        dm = GSE130711Module(root=mroot, sigma_0=SIGMA, percentile=99.99, cell_No=1, res=res,
+                             deg="deno")
+        dm.extract_constraint_mats()
+        stage1_s = time.time() - ts
+        names = sorted(os.listdir(text))
+        match, mismatch, errors = filecmp.cmpfiles(text, os.path.join(dm.dirname, "Constraints"),
+                                                   names, shallow=False)
+        check(len(names) == 44 and not mismatch and not errors,
+              f"mcool stage 1: {mismatch + errors} differ from the tool's text")
+        phase("mcool", tr, run="stage1_byte_equal", bins=n_bins, pixels=n_pixels,
+              files=len(match), stage1_s=stage1_s, card=card)
+
+        # 3. denoise_mcool through a bf16 service, against its own patches
+        tr = time.time()
+        model = HicedrnDiff(self_condition=True, number_resnet=BLOCKS, features=FEATURES,
+                            device="cpu", generator=torch.Generator().manual_seed(5))
+        ckpt = os.path.join(root, "cond.msgpack")
+        save_checkpoint(ckpt, params_to_jax(model.state_dict()), run_config=dict(
+            sigma=SIGMA, schedule="sigmoid", mode="cond", timestep=1000, percentile=99.99))
+        del model
+        service = DenoiseService(ckpt, device=dev, mode="cond", sigma=SIGMA, batch=CLI_BATCH,
+                                 bf16=True, blocks=BLOCKS, features=FEATURES, sampling_steps=1)
+        out_path = os.path.join(root, "denoised.mcool")
+        fused_resblock.launches = 0
+        fused_posterior_step.launches = 0
+        td = time.time()
+        resp = service.handle({"id": 1, "op": "denoise_mcool", "mcool": mpath,
+                               "out_mcool": out_path, "res": res})
+        torch.cuda.synchronize()
+        request_s = time.time() - td
+        launches["denoise_mcool"] = {"fused_resblock": fused_resblock.launches,
+                                     "fused_posterior_step": fused_posterior_step.launches}
+        check(resp.get("ok") and len(resp["chromosomes"]) == 22, f"denoise_mcool: {resp}")
+        src, got = McoolFile(mpath, res), McoolFile(out_path, res)
+        worst = 0.0
+        for name in src.chromnames:
+            px = src.fetch(name)
+            dense, _, _ = coo_to_dense(px.start1, px.start2, px.balanced, res)
+            norm = normalize_matrix(dense, service.percentile)
+            out = service.denoise_patches(split_pieces(norm, piece_size=64, step=64, resol=res))
+            want = to_unit(assemble_chromosome(out, norm.shape[0], resol=res))
+            back = got.fetch(name)
+            mat = np.zeros_like(want)
+            mat[back.start1 // res, back.start2 // res] = back.count
+            iu = np.triu_indices(want.shape[0])
+            worst = max(worst, float(np.abs(mat[iu] - want[iu]).max()))
+        check(worst == 0.0, f"denoise_mcool: read back {worst} from denoise_patches")
+        want_launches = 22 * BLOCKS * 2  # one chunk a chromosome, K=1: one forward
+        check(launches["denoise_mcool"] == {"fused_resblock": want_launches,
+                                            "fused_posterior_step": 0},
+              f"denoise_mcool launches {launches['denoise_mcool']}")
+        del service
+        phase("mcool", tr, run="denoise_mcool_bf16", chromosomes=22, sampling_steps=1,
+              request_s=request_s, max_abs_diff=worst, launches=launches["denoise_mcool"],
+              card=card)
+
+        # 4. the CLI from the .mcool's cache, --export-mcool
+        tr = time.time()
+        export = os.path.join(root, "export.mcool")
+        fused_resblock.launches = 0
+        fused_posterior_step.launches = 0
+        out = inference_torch.Inference(
+            batch_size=CLI_BATCH, sigma_t=SIGMA, condition=False, root=mroot, schedule="sigmoid",
+            timestep=1000, bf16=True, weights=ckpt, sampling_steps=1, t_start="auto",
+            blocks=BLOCKS, features=FEATURES, compute_metrics=False, export_mcool=export,
+            device=dev)
+        torch.cuda.synchronize()
+        cli_s = time.time() - tr
+        launches["export_cli_k1"] = {"fused_resblock": fused_resblock.launches,
+                                     "fused_posterior_step": fused_posterior_step.launches}
+        exported = McoolFile(export, res)
+        check(exported.chromnames == [f"chr{c}" for c in CLI_TEST_CHROMS],
+              f"--export-mcool chromosomes {exported.chromnames}")
+        for c in CLI_TEST_CHROMS:
+            want = to_unit(np.load(os.path.join(out["outdir"], f"dense_chr_{c}.npy")))
+            back = exported.fetch(f"chr{c}")
+            mat = np.zeros_like(want)
+            mat[back.start1 // res, back.start2 // res] = back.count
+            iu = np.triu_indices(want.shape[0])
+            check(np.array_equal(mat[iu], want[iu].astype(np.float32)),
+                  f"--export-mcool chr{c} differs from its dense export")
+        check(launches["export_cli_k1"] == {"fused_resblock": 2 * BLOCKS * 2,
+                                            "fused_posterior_step": 0},
+              f"--export-mcool CLI launches {launches['export_cli_k1']}")
+        phase("mcool", tr, run="export_mcool_cli_k1", patches=len(out["inds"]), cli_s=cli_s,
+              file_bytes=os.path.getsize(export), launches=launches["export_cli_k1"],
+              card=card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
 
 def main():
     if not torch.cuda.is_available():
@@ -3869,6 +4356,11 @@ def main():
     distilled = distill(dev, card)
     concurrency = serve_concurrency(dev, card)
 
+    # ---- 17. the CLIs and the daemon over two ranks sharing the card; 18. .mcool
+    # files read and written through the port's HDF5 module
+    dps = data_parallel_sampling(dev, card)
+    mcool = mcool_phase(dev, card)
+
     r32, r16 = resblock[torch.float32], resblock[torch.bfloat16]
     kernels = [
         {"name": "fused_resblock", "route": "cuda",
@@ -3901,7 +4393,11 @@ def main():
          "launches_data_parallel_rank0": {k: v["fused_resblock"] for k, v in dp.items()},
          "launches_distill_k1_cli": distilled["resblock_launches"],
          "launches_serve_concurrency": {k: v["fused_resblock"]
-                                        for k, v in concurrency.items()}},
+                                        for k, v in concurrency.items()},
+         "launches_data_parallel_sampling": {
+             run: {rank: c["fused_resblock"] for rank, c in by_rank.items()}
+             for run, by_rank in dps.items()},
+         "launches_mcool": {k: v["fused_resblock"] for k, v in mcool.items()}},
         {"name": "fused_posterior_step", "route": "cuda",
          "source": "hicdiff_tpu_torch/csrc/sample_step.cu",
          "replaces": "hicdiff_tpu/kernels/sample_step.py:65",
@@ -3917,6 +4413,9 @@ def main():
          "launches_fullscale_cli_k1": fullscale["step_launches"],
          "launches_engine_options_chain": {k: v["step_launches"] for k, v in options.items()},
          "launches_data_parallel_rank0": {k: v["fused_posterior_step"] for k, v in dp.items()},
+         "launches_data_parallel_sampling": {
+             run: {rank: c["fused_posterior_step"] for rank, c in by_rank.items()}
+             for run, by_rank in dps.items()},
          "offset_bit_equal_to_whole_batch": offset_equal},
     ]
     # the backward (and the training forward): port-only kernels, no Pallas kernel to replace

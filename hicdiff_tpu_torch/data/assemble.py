@@ -6,17 +6,18 @@ hicdiff_tpu/data/assemble.py).
 - `assemble_chromosome` scatters patches into a symmetric dense matrix
   (off-band entries stay 0);
 - `write_mcool` writes a minimal single-resolution .mcool (the cooler layout
-  `data/mcool.py` reads). It needs h5py, imported inside it.
+  `data/mcool.py` reads) through `data/mcool.py:write_cooler`.
 
 Matrices are in the pipeline's normalized space ([-1, 1], percentile-clipped
 Full_Mats units, compacted rows); `to_unit` rescales to [0, 1] for export.
 """
 from __future__ import annotations
 
-import os
 from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
+
+from hicdiff_tpu_torch.data.mcool import write_cooler
 
 __all__ = [
     "band_tile_offsets",
@@ -117,19 +118,14 @@ def write_mcool(
 ) -> str:
     """Write per-chromosome dense matrices as a minimal single-resolution
     .mcool (chroms/, bins/, pixels/ with bin1_offset and chrom_offset
-    indexes, unit weights). `mats` maps a chromosome NUMBER (1-based, the
-    pipeline's `inds` label) to a dense symmetric matrix; the upper
-    triangle's nonzero entries are stored as float32 counts times
-    `value_scale`."""
-    import h5py
-
+    indexes, unit weights) through the port's HDF5 writer. `mats` maps a
+    chromosome NUMBER (1-based, the pipeline's `inds` label) to a dense
+    symmetric matrix; the upper triangle's nonzero entries are stored as
+    float32 counts times `value_scale`."""
     chros = sorted(mats)
     names = chrom_names or [f"chr{c}" for c in chros]
     sizes = [int(mats[c].shape[0]) for c in chros]
-    n_bins = int(sum(sizes))
 
-    chrom_of_bin = np.repeat(np.arange(len(chros), dtype=np.int32), sizes)
-    start_of_bin = np.concatenate([np.arange(n, dtype=np.int64) * res for n in sizes])
     bin1, bin2, count = [], [], []
     offset = 0
     for c, n in zip(chros, sizes):
@@ -144,30 +140,5 @@ def write_mcool(
     bin2 = np.concatenate(bin2).astype(np.int64)
     count = np.concatenate(count).astype(np.float32)
     order = np.lexsort((bin2, bin1))
-    bin1, bin2, count = bin1[order], bin2[order], count[order]
-
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    with h5py.File(path, "w") as f:
-        g = f.create_group(f"resolutions/{res}")
-        # a fixed-width name dtype sized from the longest name, so long
-        # contig names are not truncated
-        name_bytes = [str(n).encode() for n in names]
-        width = max(1, max(len(b) for b in name_bytes))
-        g.create_dataset("chroms/name", data=np.array(name_bytes, dtype=f"S{width}"))
-        g.create_dataset("chroms/length", data=np.asarray(sizes, np.int64) * res)
-        g.create_dataset("bins/chrom", data=chrom_of_bin)
-        g.create_dataset("bins/start", data=start_of_bin)
-        g.create_dataset("bins/end", data=start_of_bin + res)
-        g.create_dataset("bins/weight", data=np.ones(n_bins))
-        g.create_dataset("pixels/bin1_id", data=bin1)
-        g.create_dataset("pixels/bin2_id", data=bin2)
-        g.create_dataset("pixels/count", data=count)
-        g.create_dataset(
-            "indexes/bin1_offset",
-            data=np.searchsorted(bin1, np.arange(n_bins + 1)).astype(np.int64),
-        )
-        g.create_dataset(
-            "indexes/chrom_offset",
-            data=np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64),
-        )
-    return path
+    return write_cooler(path, res, names, sizes, bin1[order], bin2[order], count[order],
+                        np.ones(int(sum(sizes))))

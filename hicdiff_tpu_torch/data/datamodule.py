@@ -10,7 +10,7 @@ by either package is reused by the other:
         Splits/GSE131811_{full,noisy,sample}_chr_{i}_{res}_piece_{p}.npy
 
 (the GSE131811 prefix is the reference's for both cell lines). Only the
-first stage reads the .mcool (h5py); when `Constraints/` is present the
+first stage reads the .mcool (`data/hdf5.py`); when `Constraints/` is present the
 caches are built from its text contact lists, with numpy alone. Loaders are
 numpy batch iterators that yield NHWC arrays.
 """

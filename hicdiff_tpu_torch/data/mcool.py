@@ -1,40 +1,29 @@
-""".mcool/.cool reader on h5py (port of hicdiff_tpu/data/mcool.py).
+""".mcool/.cool reader (port of hicdiff_tpu/data/mcool.py).
 
 A cooler file is an HDF5 file with a documented schema (groups
 bins{chrom,start,end,weight}, chroms{name,length}, pixels{bin1_id,bin2_id,
 count}, indexes{chrom_offset,bin1_offset}); this reads the subset the
 pipeline uses, per-chromosome intra-chromosomal pixels with balanced
-weights, with vectorized numpy.
-
-`h5py` is imported inside the functions that open a file, so the port
-imports where it is absent; there, reading a file raises ImportError.
+weights, with vectorized numpy. The file is read through `data/hdf5.py`,
+the port's own reader of the HDF5 subset cooler files use (no h5py).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+import os
+from typing import List, Sequence
 
 import numpy as np
 
-__all__ = ["list_coolers", "McoolFile", "ChromPixels"]
+from hicdiff_tpu_torch.data.hdf5 import File, write_file
 
-
-def _h5py():
-    try:
-        import h5py
-    except ImportError as e:
-        raise ImportError(
-            "reading an .mcool needs h5py, which this interpreter lacks; "
-            "prepare the Constraints/*.txt contact lists elsewhere and the "
-            "data module builds its caches from them"
-        ) from e
-    return h5py
+__all__ = ["list_coolers", "McoolFile", "ChromPixels", "write_cooler"]
 
 
 def list_coolers(path: str) -> List[str]:
     """The cooler group paths in an .mcool (cooler.fileops.list_coolers)."""
     out = []
-    with _h5py().File(path, "r") as f:
+    with File(path) as f:
         if "resolutions" in f:
             for res in sorted(f["resolutions"], key=lambda r: int(r)):
                 out.append(f"/resolutions/{res}")
@@ -62,8 +51,7 @@ class McoolFile:
     def __init__(self, path: str, resolution: int):
         self.path = path
         self.resolution = int(resolution)
-        self._bin1_offset_cache = None
-        with _h5py().File(path, "r") as f:
+        with File(path) as f:
             grp = self._group(f)
             # the reader and the upper-triangle symmetrization downstream
             # assume the schema's symmetric-upper layout; a declared
@@ -130,18 +118,15 @@ class McoolFile:
 
     def _bin1_offset(self, grp, lo_bin: int, hi_bin: int):
         """(p_lo, p_hi) pixel range for bin1 in [lo_bin, hi_bin): the
-        indexes/bin1_offset index when present, else a one-time searchsorted
-        over pixels/bin1_id (sorted in the schema), cached."""
+        indexes/bin1_offset index when present, else a binary search of
+        pixels/bin1_id (sorted in the schema) that reads only the elements
+        it probes (and so only the chunks that hold them)."""
         if "indexes" in grp and "bin1_offset" in grp["indexes"]:
             bin1_offset = grp["indexes/bin1_offset"]
             return int(bin1_offset[lo_bin]), int(bin1_offset[hi_bin])
-        if self._bin1_offset_cache is None:
-            bin1_all = grp["pixels/bin1_id"][:].astype(np.int64)
-            n_bins_total = int(self._chrom_offset[-1])
-            self._bin1_offset_cache = np.searchsorted(
-                bin1_all, np.arange(n_bins_total + 1)
-            ).astype(np.int64)
-        return int(self._bin1_offset_cache[lo_bin]), int(self._bin1_offset_cache[hi_bin])
+        bin1 = grp["pixels/bin1_id"]
+        p_lo = _bisect_left(bin1, lo_bin, 0, bin1.shape[0])
+        return p_lo, _bisect_left(bin1, hi_bin, p_lo, bin1.shape[0])
 
     def fetch(self, chrom: str) -> ChromPixels:
         """All intra-chromosomal pixels of `chrom` with balanced values:
@@ -150,7 +135,7 @@ class McoolFile:
         lo_bin = int(self._chrom_offset[ci])
         hi_bin = int(self._chrom_offset[ci + 1])
 
-        with _h5py().File(self.path, "r") as f:
+        with File(self.path) as f:
             grp = self._group(f)
             p_lo, p_hi = self._bin1_offset(grp, lo_bin, hi_bin)
             bin1 = grp["pixels/bin1_id"][p_lo:p_hi].astype(np.int64)
@@ -171,3 +156,42 @@ class McoolFile:
             count=count,
             balanced=balanced,
         )
+
+
+def write_cooler(path: str, res: int, chrom_names: Sequence[str], bins_per_chrom: Sequence[int],
+                 bin1: np.ndarray, bin2: np.ndarray, count: np.ndarray,
+                 weights: np.ndarray) -> str:
+    """Write one resolution of an .mcool (`resolutions/{res}`: chroms/,
+    bins/, pixels/ and the bin1_offset and chrom_offset indexes) through
+    `data/hdf5.py`. The pixels are genome-wide bin ids sorted by (bin1,
+    bin2); each array keeps its dtype, the schema's others are int64 (the
+    bins' chromosome codes int32, the names fixed-width bytes sized to the
+    longest)."""
+    sizes = np.asarray(bins_per_chrom, np.int64)
+    n_bins = int(sizes.sum())
+    start = np.concatenate([np.arange(n, dtype=np.int64) * res for n in sizes])
+    names = [str(n).encode() for n in chrom_names]
+    width = max(1, max(len(b) for b in names))
+    bin1 = np.asarray(bin1)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    return write_file(path, {"resolutions": {str(int(res)): {
+        "chroms": {"name": np.array(names, dtype=f"S{width}"), "length": sizes * res},
+        "bins": {"chrom": np.repeat(np.arange(len(sizes), dtype=np.int32), sizes),
+                 "start": start, "end": start + res, "weight": np.asarray(weights)},
+        "pixels": {"bin1_id": bin1, "bin2_id": np.asarray(bin2), "count": np.asarray(count)},
+        "indexes": {
+            "bin1_offset": np.searchsorted(bin1, np.arange(n_bins + 1)).astype(np.int64),
+            "chrom_offset": np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)},
+    }}})
+
+
+def _bisect_left(column, value: int, lo: int, hi: int) -> int:
+    """The first index in [lo, hi) of a sorted on-disk column whose element
+    is >= value (hi if none), reading one element a probe."""
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if int(column[mid]) < value:
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo

@@ -23,6 +23,7 @@ import torch
 from hicdiff_tpu_torch.data.datamodule import GSE130711Module, GSE131811Module
 from hicdiff_tpu_torch.metrics.genomedisco import compute_reproducibility
 from hicdiff_tpu_torch.metrics.image import mse, pearson, snr, spearman, ssim
+from hicdiff_tpu_torch.parallel.mesh import Mesh, barrier, is_main
 
 __all__ = ["build_test_module", "evaluate_model", "MetricAccumulator"]
 
@@ -134,6 +135,7 @@ def evaluate_model(
     compute_metrics: bool = True,
     input_kind: str = "noisy",
     percentile=None,  # the training-time clip percentile (see build_test_module)
+    mesh: Optional[Mesh] = None,
 ) -> Dict:
     """Iterate the test split, run `model_fn` per batch, save the
     Outputs_diff quartet, and return {'predict', 'inds', 'metrics',
@@ -147,6 +149,13 @@ def evaluate_model(
     seconds (data setup; the batches' dispatch, fetch and metrics, totals
     and the fetch and metrics of each batch; the save), printed when
     HICDIFF_EVAL_TIMING=1.
+
+    With a mesh (a sampler sharded over ranks: each call of `model_fn` is
+    a collective), every rank goes through the same batches and calls;
+    the main rank prepares the cache first (the others wait at a barrier),
+    and only it computes the metrics and writes the quartet. The other
+    ranks return the same dict with `metrics` set to None and write
+    nothing.
     """
     if input_kind not in ("noisy", "sample"):
         raise ValueError(f"input_kind must be 'noisy' or 'sample', got {input_kind!r}")
@@ -154,7 +163,11 @@ def evaluate_model(
     t0 = time.perf_counter()
     dm = build_test_module(cell_line, cellN, deg, sigma, root=root, batch_size=batch_size,
                            percentile=percentile)
-    dm.prepare_data()
+    main = is_main(mesh)
+    if main:
+        dm.prepare_data()
+    barrier(mesh)
+    compute_metrics = compute_metrics and main
     dm.setup(stage=chro)
     loader = dm.test_dataloader()
     spent = {"setup": time.perf_counter() - t0, "dispatch": 0.0, "fetch": 0.0,
@@ -165,7 +178,8 @@ def evaluate_model(
 
     outdir = os.path.join(root or os.getcwd(), "Outputs_diff",
                           f"{model_name}{cell_line}{cellN}_{deg}_{sigma}{result_tag}")
-    os.makedirs(outdir, exist_ok=True)
+    if main:
+        os.makedirs(outdir, exist_ok=True)
 
     acc = MetricAccumulator()
     prs, hrs, lrs, inds_all = [], [], [], []
@@ -215,17 +229,16 @@ def evaluate_model(
 
     t = time.perf_counter()
     predict = np.concatenate(prs)
-    target = np.concatenate(hrs)
-    low = np.concatenate(lrs)
     index = np.concatenate(inds_all)
-    # persist in the reference's NCHW layout (metrics_cond.py:126-134)
-    def to_nchw(a):
-        return np.transpose(a, (0, 3, 1, 2)) if a.ndim == 4 else a
+    if main:
+        # persist in the reference's NCHW layout (metrics_cond.py:126-134)
+        def to_nchw(a):
+            return np.transpose(a, (0, 3, 1, 2)) if a.ndim == 4 else a
 
-    np.save(os.path.join(outdir, "target"), to_nchw(target))
-    np.save(os.path.join(outdir, "noisy"), to_nchw(low))
-    np.save(os.path.join(outdir, "predict"), to_nchw(predict))
-    np.save(os.path.join(outdir, "inds"), index)
+        np.save(os.path.join(outdir, "target"), to_nchw(np.concatenate(hrs)))
+        np.save(os.path.join(outdir, "noisy"), to_nchw(np.concatenate(lrs)))
+        np.save(os.path.join(outdir, "predict"), to_nchw(predict))
+        np.save(os.path.join(outdir, "inds"), index)
     spent["save"] = time.perf_counter() - t
     if show:
         print(f"[eval-timing] concat+save: {spent['save']:.3f}s", flush=True)
@@ -233,7 +246,7 @@ def evaluate_model(
     return {
         "predict": predict,
         "inds": index,
-        "metrics": acc.result() if compute_metrics else {},
+        "metrics": (acc.result() if compute_metrics else {}) if main else None,
         "outdir": outdir,
         "data_dir": dm.dirname,
         "res": dm.res,

@@ -18,13 +18,15 @@ rank's [lo, hi) of a padded global batch, with the same assertion),
 the argument by which the engine and the distiller draw what the whole
 batch draws and keep the rank's rows (the engine's `draw_rows`);
 `reduce_step` sums a step's gradients and loss over the ranks;
-`run_sharded` runs a sampler on the rank's rows and gathers the output.
+`run_sharded` runs a sampler on the rank's rows and gathers the output;
+`broadcast_header` and `broadcast_array` carry rank 0's work to the other
+ranks (the sharded daemon's chunks, `serve.py`).
 """
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +49,8 @@ __all__ = [
     "is_main",
     "shard_rows",
     "reduce_step",
+    "broadcast_header",
+    "broadcast_array",
 ]
 
 
@@ -278,3 +282,40 @@ def run_sharded(mesh: Mesh, fn, x) -> torch.Tensor:
         return fn(torch.from_numpy(np.ascontiguousarray(_host(x))).to(mesh.device), None)
     rows, local, _ = shard_rows(mesh, x)
     return all_gather_rows(mesh, fn(local, rows), rows[1])
+
+
+def _wire(mesh: Mesh) -> torch.device:
+    """Where a broadcast's tensor lives: NCCL moves device tensors, gloo
+    host tensors."""
+    return mesh.device if mesh.backend == "nccl" else torch.device("cpu")
+
+
+HEADER_LEN = 8
+
+
+def broadcast_header(mesh: Mesh, values: Optional[Sequence[int]] = None) -> List[int]:
+    """Rank 0's HEADER_LEN int64 values (values zero-padded), on every rank;
+    the other ranks pass None."""
+    head = torch.zeros(HEADER_LEN, dtype=torch.int64)
+    if mesh.rank == 0:
+        if len(values) > HEADER_LEN:
+            raise ValueError(f"a header holds at most {HEADER_LEN} values, got {len(values)}")
+        head[:len(values)] = torch.tensor([int(v) for v in values], dtype=torch.int64)
+    head = head.to(_wire(mesh))
+    dist.broadcast(head, src=0, group=mesh.group)
+    return head.cpu().tolist()
+
+
+def broadcast_array(mesh: Mesh, a: Optional[np.ndarray], shape: Sequence[int],
+                    dtype) -> np.ndarray:
+    """Rank 0's array `a` (of `shape` and `dtype`, which every rank knows,
+    e.g. from a header), on every rank; the other ranks pass None."""
+    if mesh.rank == 0:
+        t = torch.from_numpy(np.ascontiguousarray(a, dtype=dtype))
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"broadcast of a {tuple(t.shape)} array announced as {tuple(shape)}")
+    else:
+        t = torch.empty(tuple(shape), dtype=torch.from_numpy(np.empty(0, dtype)).dtype)
+    t = t.to(_wire(mesh))
+    dist.broadcast(t, src=0, group=mesh.group)
+    return t.cpu().numpy()

@@ -17,8 +17,8 @@ orders; those weights are counted (at most one in 100,000), each at most
 4 lr apart.
 
 `prep` writes a 3-chromosome synthetic cell as the contact lists the data
-module reads (`Constraints/chrom_{i}_{40000,count}.txt`: the card's machine
-has no h5py to write an .mcool) and runs the production prep path on it.
+module reads (`Constraints/chrom_{i}_{40000,count}.txt`) and runs the
+production prep path on it.
 Widths are parameters: 2 blocks x 32 features for the CPU, 32 x 256 on the
 card.
 
@@ -220,11 +220,9 @@ def _shard_noise(device, rows):
     a generator seeded 0 on `device`, the shard's rows kept."""
     import torch
 
-    from hicdiff_tpu_torch.diffusion.gaussian import draw_rows
+    from hicdiff_tpu_torch.sampling.ddrm import generator_noise
 
-    gen = torch.Generator(device=device).manual_seed(0)
-    return lambda shape: draw_rows(
-        lambda s: torch.randn(s, generator=gen, dtype=torch.float32, device=device), shape, rows)
+    return generator_noise(torch.Generator(device=device).manual_seed(0), device, rows)
 
 
 # ------------------------------------------------------------------ launcher

@@ -19,8 +19,23 @@ Protocol (one JSON object per line, the response mirrors the request `id`):
   {"id": 4, "op": "shutdown"}
 
 Responses: {"id", "ok": true, ...} or {"id", "ok": false, "error": "..."}.
-`denoise_mcool` reads and writes .mcool files with h5py (imported when the
-op runs).
+`denoise_mcool` reads and writes .mcool files through the port's HDF5
+reader and writer (`data/hdf5.py`).
+
+Over several GPUs (a `parallel.mesh.Mesh`, one process a rank; the JAX
+daemon shards its service batch over the chips) only rank 0 listens on
+the socket. The service batch is rounded up to a multiple of the world
+size; for each padded chunk that `denoise_patches` sends to the device,
+rank 0 broadcasts a header (run, the chunk's shape, the DDRM batch count)
+and then the chunk and the conditional sampler's generator state, and
+every rank samples its rows of the chunk (`run_sharded`: each draws what
+a one-rank service at this batch draws for the whole chunk, and keeps its
+rows). The other ranks wait in `follow()` for those broadcasts; an idle
+rank 0 sends a no-op header every KEEPALIVE_S, so that wait stays inside
+the process group's timeout; `shutdown` sends stop and every rank exits.
+A failed collective (a rank died or hung past the timeout) leaves the
+ranks out of step: it is not answered as a request's error but ends
+`serve_forever` with `ShardError`.
 """
 from __future__ import annotations
 
@@ -36,13 +51,23 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["DenoiseService", "serve_forever", "request"]
+__all__ = ["DenoiseService", "ShardError", "serve_forever", "request", "KEEPALIVE_S"]
+
+KEEPALIVE_S = 30.0  # the longest an idle rank 0 leaves the followers waiting
+_STOP, _RUN, _NOOP = 0, 1, 2  # the header's op
+
+
+class ShardError(RuntimeError):
+    """A sharded chunk failed after rank 0 announced it: the ranks are out of
+    step, so the daemon stops rather than answer the next request."""
 
 
 class DenoiseService:
     """Resident denoising engine: build/load/warm once, then
     `denoise_patches` at steady state on `device` (no fallback: a CUDA
-    device that is absent raises)."""
+    device that is absent raises). With a mesh of more than one rank every
+    rank builds the service (on the mesh's device); rank 0 serves and the
+    others call `follow()`."""
 
     def __init__(
         self,
@@ -64,6 +89,7 @@ class DenoiseService:
         use_ema: bool = False,
         seed: int = 0,
         warmup: bool = True,
+        mesh=None,
     ):
         from hicdiff_tpu_torch.diffusion.gaussian import GaussianDiffusion
         from hicdiff_tpu_torch.models.hicedrn import HicedrnDiff
@@ -72,7 +98,8 @@ class DenoiseService:
             raise ValueError(f"mode must be 'cond' or 'ddrm', got {mode!r}")
         self.mode = mode
         self.deg = deg
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else torch.device(device)
         self.sigma = float(sigma)
         # inputs must be normalised at the percentile the checkpoint saw:
         # None adopts the checkpoint's stored value (else train.py's 99.99);
@@ -80,13 +107,16 @@ class DenoiseService:
         # checkpoint's run_config
         requested_pct = None if percentile is None else float(percentile)
         self.percentile = 99.99 if requested_pct is None else requested_pct
-        self.batch = int(batch)
+        world = 1 if mesh is None else mesh.world_size
+        # the sharded batch must split evenly over the ranks
+        self.batch = -(-int(batch) // world) * world
         self._seed = int(seed)
         self._count = 0
         self._generator = torch.Generator().manual_seed(int(seed))
         # one device user at a time, re-entrant so handle() -> denoise_patches
         # keeps one acquisition; direct embedders get the same guarantee
         self._lock = threading.RLock()
+        self._last_sent = time.monotonic()
 
         model = HicedrnDiff(
             self_condition=(mode == "cond"),
@@ -146,16 +176,114 @@ class DenoiseService:
 
         if warmup:
             # builds the CUDA kernels and warms the libraries; ddrm warms with
-            # a measurement-shaped batch
-            self.denoise_patches(np.zeros((1, self._meas_dim), np.float32) if mode == "ddrm"
-                                 else np.zeros((1, 64, 64, 1), np.float32))
+            # a measurement-shaped batch (one chunk, which a follower takes)
+            if self._follower:
+                self._follow_chunk()
+            else:
+                self.denoise_patches(np.zeros((1, self._meas_dim), np.float32)
+                                     if mode == "ddrm" else np.zeros((1, 64, 64, 1), np.float32))
 
-    def _restore(self, y: torch.Tensor) -> torch.Tensor:
-        """One ddrm batch, its draws from a generator on the device seeded by
-        (seed, the service's batch count)."""
-        seed = np.random.SeedSequence((self._seed, self._count)).generate_state(1, np.uint64)[0]
-        self._count += 1
-        return self.restorer(y, torch.Generator(device=self.device).manual_seed(int(seed)))
+    @property
+    def _follower(self) -> bool:
+        return self.mesh is not None and self.mesh.rank != 0
+
+    @property
+    def _sharded(self) -> bool:
+        return self.mesh is not None and self.mesh.world_size > 1
+
+    def _sample(self, chunk: np.ndarray) -> torch.Tensor:
+        """One padded chunk through the sampler, by rows over the mesh's
+        ranks. ddrm draws from a generator on the device seeded by (seed,
+        the service's batch count); cond from the service's generator."""
+        from hicdiff_tpu_torch.parallel.mesh import run_sharded
+
+        if self.mode == "ddrm":
+            from hicdiff_tpu_torch.sampling.ddrm import generator_noise
+
+            seed = np.random.SeedSequence((self._seed, self._count)).generate_state(
+                1, np.uint64)[0]
+            self._count += 1
+            gen = torch.Generator(device=self.device).manual_seed(int(seed))
+
+            def fn(y, rows):
+                return self.restorer(y, None, noise=generator_noise(gen, self.device, rows))
+        else:
+            def fn(x, rows):
+                return self.engine.super_resolution(x, self._generator, rows=rows)
+        if self.mesh is None:
+            return fn(torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device), None)
+        return run_sharded(self.mesh, fn, chunk)
+
+    def _announce(self, op: int, chunk: Optional[np.ndarray] = None) -> None:
+        """Rank 0: the header, then the chunk and the cond generator's state."""
+        from hicdiff_tpu_torch.parallel.mesh import broadcast_array, broadcast_header
+
+        head = [op] if chunk is None else [op, self._count, chunk.ndim, *chunk.shape]
+        broadcast_header(self.mesh, head)
+        if chunk is not None:
+            broadcast_array(self.mesh, chunk, chunk.shape, np.float32)
+            if self.mode == "cond":
+                state = self._generator.get_state().numpy()
+                broadcast_array(self.mesh, state, state.shape, np.uint8)
+        self._last_sent = time.monotonic()
+
+    def _lead(self, chunk: np.ndarray) -> torch.Tensor:
+        """Rank 0: announce the chunk, then sample its rows."""
+        self._announce(_RUN, chunk)
+        return self._sample(chunk)
+
+    def _follow_chunk(self) -> bool:
+        """A follower: take rank 0's next header and, for a run, its chunk,
+        and sample its rows. Returns False on stop."""
+        from hicdiff_tpu_torch.parallel.mesh import broadcast_array, broadcast_header
+
+        head = broadcast_header(self.mesh)
+        if head[0] == _STOP:
+            return False
+        if head[0] == _RUN:
+            self._count, ndim = head[1], head[2]
+            chunk = broadcast_array(self.mesh, None, head[3:3 + ndim], np.float32)
+            if self.mode == "cond":
+                n = self._generator.get_state().numel()
+                self._generator.set_state(torch.from_numpy(
+                    broadcast_array(self.mesh, None, (n,), np.uint8)))
+            self._sample(chunk)
+        return True
+
+    def follow(self) -> None:
+        """A follower (a rank other than 0): sample rank 0's chunks until it
+        sends stop."""
+        if not self._follower:
+            raise RuntimeError("follow() runs on the ranks other than 0")
+        while self._follow_chunk():
+            pass
+
+    def keepalive(self) -> None:
+        """Rank 0 of a sharded service: a no-op header when it has sent
+        nothing for KEEPALIVE_S and no request holds the device."""
+        if not self._sharded or time.monotonic() - self._last_sent < KEEPALIVE_S:
+            return
+        if self._lock.acquire(blocking=False):
+            try:
+                self._collective(self._announce, _NOOP)
+            finally:
+                self._lock.release()
+
+    def stop_followers(self) -> None:
+        """Rank 0 of a sharded service: send stop (the followers return
+        from `follow()`)."""
+        if self._sharded:
+            with self._lock:
+                self._collective(self._announce, _STOP)
+
+    def _collective(self, fn, *args):
+        """fn(*args) on rank 0 of a sharded service; a failure means the
+        ranks are out of step and raises ShardError."""
+        try:
+            return fn(*args)
+        except Exception as e:
+            raise ShardError(f"a collective of the sharded service failed: "
+                             f"{type(e).__name__}: {e}") from e
 
     def denoise_patches(self, patches: np.ndarray) -> np.ndarray:
         """NHWC or NCHW [-1,1] noisy patches -> denoised, same layout.
@@ -185,9 +313,9 @@ class DenoiseService:
                             f"{self._meas_dim}, got {chunk.shape[1]} (image-shaped input "
                             "is a measurement only for image-sized degradations like "
                             "deno/deblur)")
-                inp = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
-                out = (self._restore(inp) if self.mode == "ddrm"
-                       else self.engine.super_resolution(inp, self._generator))
+                chunk = np.ascontiguousarray(chunk, np.float32)
+                out = (self._collective(self._lead, chunk) if self._sharded
+                       else self._sample(chunk))
                 outs.append(out[:n].cpu().numpy())
         out = np.concatenate(outs) if outs else x
         return np.transpose(out, (0, 3, 1, 2)) if nchw else out
@@ -201,6 +329,8 @@ class DenoiseService:
         try:
             with self._lock:
                 return self._handle_locked(op, rid, req, t0)
+        except ShardError:  # the ranks are out of step: the daemon stops
+            raise
         except Exception as e:  # served errors must not kill the daemon
             return {"id": rid, "ok": False, "error": f"{type(e).__name__}: {e}"}
 
@@ -212,6 +342,7 @@ class DenoiseService:
             return {"id": rid, "ok": True, "op": "ping", "mode": self.mode,
                     "t_start": self.t_start, "batch": self.batch,
                     "device": str(self.device),
+                    "world_size": 1 if self.mesh is None else self.mesh.world_size,
                     "launches": {"fused_resblock": fused_resblock.launches,
                                  "fused_posterior_step": fused_posterior_step.launches}}
         if op == "denoise":
@@ -224,6 +355,7 @@ class DenoiseService:
         if op == "denoise_mcool":
             return self._denoise_mcool(req, rid, t0)
         if op == "shutdown":
+            self.stop_followers()
             return {"id": rid, "ok": True, "shutdown": True}
         return {"id": rid, "ok": False, "error": f"unknown op {op!r}"}
 
@@ -279,10 +411,13 @@ def serve_forever(service: DenoiseService, socket_path: str) -> None:
     """Accept newline-JSON requests on a Unix socket until a shutdown op.
 
     Client connections are accepted concurrently, but every request funnels
-    through the service's lock, so device work is serialized."""
+    through the service's lock, so device work is serialized. A sharded
+    service's rank 0 serves here; a failed collective stops the loop and
+    raises ShardError (the client of that request gets no answer)."""
     if os.path.exists(socket_path):
         os.unlink(socket_path)
     stop = threading.Event()
+    failed = []
 
     class Handler(socketserver.StreamRequestHandler):
         def handle(self):
@@ -295,7 +430,12 @@ def serve_forever(service: DenoiseService, socket_path: str) -> None:
                 except json.JSONDecodeError as e:
                     resp = {"ok": False, "error": f"bad json: {e}"}
                 else:
-                    resp = service.handle(req)
+                    try:
+                        resp = service.handle(req)
+                    except ShardError as e:
+                        failed.append(e)
+                        stop.set()
+                        return
                 self.wfile.write((json.dumps(resp) + "\n").encode())
                 self.wfile.flush()
                 if resp.get("shutdown"):
@@ -305,12 +445,17 @@ def serve_forever(service: DenoiseService, socket_path: str) -> None:
     class Server(socketserver.ThreadingUnixStreamServer):
         daemon_threads = True
 
-    with Server(socket_path, Handler) as srv:
-        srv.timeout = 0.2
-        print(f"hicdiff_tpu_torch serving on {socket_path}", flush=True)
-        while not stop.is_set():
-            srv.handle_request()
-    os.unlink(socket_path)
+    try:
+        with Server(socket_path, Handler) as srv:
+            srv.timeout = 0.2
+            print(f"hicdiff_tpu_torch serving on {socket_path}", flush=True)
+            while not stop.is_set():
+                srv.handle_request()
+                service.keepalive()
+    finally:
+        os.unlink(socket_path)
+    if failed:
+        raise failed[0]
 
 
 def request(socket_path: str, req: dict, timeout: float = 600.0) -> dict:

@@ -17,9 +17,8 @@ measurements of `--deg`'s operator, with the linear 1000-step betas. Both
 write the Outputs_diff/{target,noisy,predict,inds}.npy quartet into the
 directory inference.py names, and report the SSIM/PSNR/MSE/SNR/PCC/SPC/
 GenomeDISCO suite. Checkpoints are the JAX package's msgpack files, read
-without the `msgpack` package. Reading an .mcool and `--export-mcool` need
-h5py; caches prepared from the Constraints/*.txt contact lists need numpy
-only.
+without the `msgpack` package; .mcool files are read and written by the
+port's own HDF5 module (`hicdiff_tpu_torch/data/hdf5.py`), without h5py.
 
 `--model` picks the backbone from the registry (`models/zoo.py`), as
 inference.py does: `hicedrn` (the default; `--blocks`/`--features` apply to
@@ -33,9 +32,23 @@ package's).
 port runs each chain in one pass (CUDA has no per-execution time limit to
 segment around), and every residual block always goes through the fused
 kernel.
+
+Over several GPUs, as inference.py shards each test batch over its chips,
+launch it with torchrun: one process a rank, each on cuda:LOCAL_RANK over
+NCCL, or every rank on the card `--device` names over gloo:
+
+    torchrun --nproc-per-node 2 inference_torch.py -u 0 -s 0.1 --t-start auto ...
+    torchrun --nproc-per-node 2 inference_torch.py ... --device cuda:0 --dist-backend gloo
+
+Each rank samples its rows of every batch (`parallel.mesh.run_sharded`),
+drawing what the one-process run draws for the whole batch, and the
+batch's output is gathered; the main rank prepares the cache, computes the
+metrics and writes the quartet and the exports. Launched plainly, the CLI
+runs on one device and makes no collective call.
 """
 import argparse
 import dataclasses
+import json
 import os
 import sys
 import time
@@ -50,7 +63,14 @@ from hicdiff_tpu_torch.diffusion.gaussian import GaussianDiffusion, to_device  #
 from hicdiff_tpu_torch.metrics.harness import evaluate_model  # noqa: E402
 from hicdiff_tpu_torch.models.hicedrn import HicedrnDiff  # noqa: E402
 from hicdiff_tpu_torch.models.zoo import DIFFUSION_BACKBONES  # noqa: E402
-from hicdiff_tpu_torch.sampling.ddrm import DDRMRestorer  # noqa: E402
+from hicdiff_tpu_torch.parallel.mesh import (  # noqa: E402
+    Mesh,
+    barrier,
+    is_main,
+    mesh_from_launcher,
+    run_sharded,
+)
+from hicdiff_tpu_torch.sampling.ddrm import DDRMRestorer, generator_noise  # noqa: E402
 from hicdiff_tpu_torch.train.checkpoint import (  # noqa: E402
     checkpoint_name,
     load_checkpoint,
@@ -113,13 +133,17 @@ def create_parser(argv=None):
                              "dense matrices (dense_chr_{i}.npy)")
     parser.add_argument("--export-mcool", type=str, default=None,
                         help="also write the denoised matrices as an .mcool at this "
-                             "path (needs h5py)")
+                             "path")
     parser.add_argument("--out-tag", type=str, default="",
                         help="suffix of the Outputs_diff result directory name")
     parser.add_argument("--no-metrics", action="store_true",
                         help="skip the metric suite; only denoise and save/export")
     parser.add_argument("--device", default="cuda",
-                        help="torch device to run on (default cuda)")
+                        help="torch device to run on (default cuda; under torchrun, cuda is "
+                             "each rank's cuda:LOCAL_RANK)")
+    parser.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                        help="under torchrun: the process group's backend (default nccl on "
+                             "GPUs, gloo on the CPU; gloo for ranks sharing one card)")
     return parser.parse_args(argv)
 
 
@@ -172,17 +196,19 @@ def Inference(batch_size=64, cellNo=1, cell_Line="Human", sigma_t=0.1, condition
               weights=None, sampling_steps=None, chro="test", deg="deno", use_ema=False,
               blocks=32, features=256, ddim_eta=0.0, t_start=None, model_name="hicedrn",
               pretrain_data="linear", export_dense=False, export_mcool=None,
-              compute_metrics=True, out_tag="", device="cuda"):
+              compute_metrics=True, out_tag="", device="cuda", mesh: Mesh = None):
     """inference.py's Inference on `device`: condition False runs the
     conditional sampler (-u 0), True the unconditional model in DDRM (-u 1).
     Returns the harness's result dict ({'predict', 'inds', 'metrics',
     'outdir', 'data_dir', 'res', 'timing'}); inference.py returns its
-    'predict'."""
+    'predict'. With a mesh, each batch is sampled by rows over its ranks on
+    the mesh's device (every rank calls this); only the main rank writes
+    files, the others' 'metrics' is None."""
     if condition and model_name.endswith("sr3"):
         sys.exit("DDRM (-u 1) drives an integer-timestep eps-model; the "
                  "sr3 (continuous-level) backbones are a -u 0 path")
     root = root or os.path.dirname(os.path.abspath(__file__))
-    device = torch.device(device)
+    device = mesh.device if mesh is not None else torch.device(device)
     timestep = timestep or 1000
     if isinstance(chro, str) and chro.isdigit():
         chro = int(chro)
@@ -221,16 +247,18 @@ def Inference(batch_size=64, cellNo=1, cell_Line="Human", sigma_t=0.1, condition
         def model_fn(lr_batch):
             # enqueue only: the harness fetches the result after the next
             # batch is enqueued
-            x = _to_device(lr_batch, device)
             generator = torch.Generator().manual_seed(_batch_seed(seed, batches[0]))
             batches[0] += 1
-            return engine.super_resolution(x, generator)
+            if mesh is not None:  # each rank its rows, drawing the whole batch's noise
+                return run_sharded(mesh, lambda x, rows: engine.super_resolution(
+                    x, generator, rows=rows), lr_batch)
+            return engine.super_resolution(_to_device(lr_batch, device), generator)
 
         result = evaluate_model(
             model_fn, model_name=f"{model_name}_l2_{schedule[:3]}", chro=chro, deg=deg,
             sigma=sigma_t, cellN=cellNo, cell_line=cell_Line, root=root,
             batch_size=batch_size, result_tag=f"_{chro}_cond{out_tag}",
-            compute_metrics=compute_metrics, percentile=ck_pct,
+            compute_metrics=compute_metrics, percentile=ck_pct, mesh=mesh,
         )
     else:
         # The reference's published uncond weights carry a `_trans` suffix
@@ -263,6 +291,9 @@ def Inference(batch_size=64, cellNo=1, cell_Line="Human", sigma_t=0.1, condition
             generator = torch.Generator(device=device).manual_seed(
                 _batch_seed(seed, 1000 + batches[0]))
             batches[0] += 1
+            if mesh is not None:  # each rank its rows of the whole batch's draws
+                return run_sharded(mesh, lambda y, rows: restore(
+                    y, None, noise=generator_noise(generator, device, rows)), samp_batch)
             return restore(_to_device(samp_batch, device), generator)
 
         result = evaluate_model(
@@ -273,9 +304,11 @@ def Inference(batch_size=64, cellNo=1, cell_Line="Human", sigma_t=0.1, condition
                         + (f"_ts{ddrm_t_start}" if ddrm_t_start is not None else "")
                         + out_tag),
             input_kind="sample", compute_metrics=compute_metrics,
-            percentile=ck_pct,
+            percentile=ck_pct, mesh=mesh,
         )
 
+    if not is_main(mesh):
+        return result
     if export_dense or export_mcool:
         from hicdiff_tpu_torch.data.assemble import assemble_by_chromosome, to_unit, write_mcool
 
@@ -306,6 +339,21 @@ def main(argv=None):
     if args.unspervised:  # DDRM's spectral transforms are fp32 whatever the backbone's dtype
         torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.time()
+    mesh = mesh_from_launcher(args.device, args.dist_backend)
+    try:
+        _run(args, mesh)
+        barrier(mesh)  # no rank tears the group down while rank 0 still writes
+    finally:
+        if mesh is not None:
+            mesh.close()
+    if is_main(mesh):
+        print(f"inference is done in {time.time() - t0:.1f}s, results saved !!!")
+
+
+def _run(args, mesh):
+    from hicdiff_tpu_torch.kernels.resblock import fused_resblock
+    from hicdiff_tpu_torch.kernels.sample_step import fused_posterior_step
+
     Inference(
         batch_size=args.batch_size, cellNo=args.celln, cell_Line=args.celline,
         sigma_t=args.sigma, condition=bool(args.unspervised), root=args.root,
@@ -315,9 +363,12 @@ def main(argv=None):
         ddim_eta=args.ddim_eta, t_start=args.t_start, model_name=args.model_name,
         pretrain_data=args.pretrain_data, export_dense=args.export_dense,
         export_mcool=args.export_mcool, compute_metrics=not args.no_metrics,
-        out_tag=args.out_tag, device=args.device,
+        out_tag=args.out_tag, device=args.device, mesh=mesh,
     )
-    print(f"inference is done in {time.time() - t0:.1f}s, results saved !!!")
+    rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world_size)
+    print(f"kernel launches, rank {rank} of {world}: " + json.dumps(
+        {"fused_resblock": fused_resblock.launches,
+         "fused_posterior_step": fused_posterior_step.launches}), flush=True)
 
 
 if __name__ == "__main__":

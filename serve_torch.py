@@ -15,6 +15,16 @@ the CPU when the device is absent):
 See hicdiff_tpu_torch/serve.py for the protocol. -u 0 serves the
 conditional sampler, -u 1 the unconditional model in the DDRM sampler
 (`mode="ddrm"`), whose requests may also carry (n, M) measurements.
+
+Over several GPUs, launch it with torchrun: one process a rank (each on
+cuda:LOCAL_RANK over NCCL, or all on the card --device names over gloo),
+rank 0 listening on --socket, the service batch sharded over the ranks:
+
+    torchrun --nproc-per-node 2 serve_torch.py --socket /tmp/hicdiff.sock --bf16 ...
+    torchrun --nproc-per-node 2 serve_torch.py ... --device cuda:0 --dist-backend gloo
+
+`shutdown` ends every rank with exit code 0; a rank that dies ends rank 0
+(with an error) at its next collective.
 """
 import argparse
 import json
@@ -60,7 +70,11 @@ def create_parser():
                          "an explicit value overrides it, with a warning on "
                          "mismatch")
     ap.add_argument("--device", default="cuda",
-                    help="torch device to serve on (default cuda)")
+                    help="torch device to serve on (default cuda; under torchrun, cuda is "
+                         "each rank's cuda:LOCAL_RANK)")
+    ap.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                    help="under torchrun: the process group's backend (default nccl on "
+                         "GPUs, gloo on the CPU; gloo for ranks sharing one card)")
     return ap
 
 
@@ -81,18 +95,38 @@ def main(argv=None):
         torch.backends.cuda.matmul.allow_tf32 = False
     if args.unspervised:  # DDRM's spectral transforms are fp32 whatever the backbone's dtype
         torch.backends.cuda.matmul.allow_tf32 = False
+    from hicdiff_tpu_torch.parallel.mesh import barrier, mesh_from_launcher
     from hicdiff_tpu_torch.serve import DenoiseService, serve_forever
 
-    service = DenoiseService(
-        args.weights, device=args.device, mode="ddrm" if args.unspervised else "cond",
-        deg=args.deg, sigma=args.sigma,
-        schedule=args.schedule, timesteps=args.timestep, t_start=args.t_start,
-        sampling_steps=args.sampling_steps, batch=args.batch, bf16=args.bf16,
-        blocks=args.blocks, features=args.features, use_ema=args.use_ema,
-        warmup=not args.no_warmup, percentile=args.percentile,
-    )
-    serve_forever(service, args.socket)
+    mesh = mesh_from_launcher(args.device, args.dist_backend)
+    try:
+        service = DenoiseService(
+            args.weights, device=args.device, mode="ddrm" if args.unspervised else "cond",
+            deg=args.deg, sigma=args.sigma,
+            schedule=args.schedule, timesteps=args.timestep, t_start=args.t_start,
+            sampling_steps=args.sampling_steps, batch=args.batch, bf16=args.bf16,
+            blocks=args.blocks, features=args.features, use_ema=args.use_ema,
+            warmup=not args.no_warmup, percentile=args.percentile, mesh=mesh,
+        )
+        rank, world = (0, 1) if mesh is None else (mesh.rank, mesh.world_size)
+        if rank == 0:
+            serve_forever(service, args.socket)
+        else:
+            service.follow()
+        print(f"kernel launches, rank {rank} of {world}: {json.dumps(_launches())}", flush=True)
+        barrier(mesh)  # no rank tears the group down while another still works
+    finally:
+        if mesh is not None:
+            mesh.close()
     return 0
+
+
+def _launches() -> dict:
+    from hicdiff_tpu_torch.kernels.resblock import fused_resblock
+    from hicdiff_tpu_torch.kernels.sample_step import fused_posterior_step
+
+    return {"fused_resblock": fused_resblock.launches,
+            "fused_posterior_step": fused_posterior_step.launches}
 
 
 if __name__ == "__main__":

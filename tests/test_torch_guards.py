@@ -42,3 +42,36 @@ def test_port_imports_without_jax():
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
+
+
+def _port_sources():
+    """Every source file of the port: the package, the *_torch.py scripts,
+    tools/torch_*.py, sample/*_torch.py and chip_smoke.py."""
+    import glob
+
+    pats = ["hicdiff_tpu_torch/**/*.py", "*_torch.py", "tools/torch_*.py", "sample/*_torch.py",
+            "chip_smoke.py"]
+    return sorted({p for pat in pats for p in glob.glob(os.path.join(ROOT, pat), recursive=True)})
+
+
+def test_port_imports_h5py_nowhere():
+    """No port source imports h5py, at module level or inside a function:
+    the port reads and writes .mcool files through its own
+    `data/hdf5.py`, also where h5py is installed."""
+    import ast
+
+    files = _port_sources()
+    assert len(files) >= 60, files
+    bad = []
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+            if isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(
+                    node.func, "id", "")) in ("import_module", "__import__"):
+                names = [a.value for a in node.args if isinstance(a, ast.Constant)]
+            bad += [f"{os.path.relpath(path, ROOT)}:{node.lineno}" for n in names
+                    if str(n).split(".")[0] == "h5py"]
+    assert not bad, bad

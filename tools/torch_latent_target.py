@@ -17,7 +17,7 @@ removeidx and clipped and scaled at the same percentile value as the
 observed matrix the prep normalized, so latent and realized target share
 one scale and differ only by the sampling noise. The weights are the
 fixture's `weights_chr{i}.npy` beside the latents, or those of an .mcool
-(--mcool, read through the port's McoolFile where h5py is present).
+(--mcool, read through the port's McoolFile).
 """
 import argparse
 import json
@@ -146,7 +146,7 @@ def main(argv=None):
                     help="latent_chr{i}.npy (and weights_chr{i}.npy) from "
                          "torch_make_fullscale_fixture.py --latent-dir, same seed")
     ap.add_argument("--mcool", default=None,
-                    help="take the weights from this .mcool instead (needs h5py)")
+                    help="take the weights from this .mcool instead")
     ap.add_argument("--res", type=int, default=40000)
     ap.add_argument("--percentile", type=float, default=99.0,
                     help="99.0 population cells (1/22), 99.99 single cells: that of "

@@ -1,6 +1,6 @@
 """Full-scale synthetic human cell for the PyTorch port, written as the
-contact lists the port's data module extracts from an .mcool: the port of
-tools/make_fullscale_fixture.py for machines without h5py.
+contact lists the port's data module extracts from an .mcool, or as the
+.mcool itself: the port of tools/make_fullscale_fixture.py.
 
 The cell is the JAX tool's, pixel for pixel: hg19 bin counts at 40 kb
 (72,031 bins over chr1..chr22), per chromosome a power-law band of Poisson
@@ -10,8 +10,8 @@ NaN. The generator consumes `np.random.default_rng(seed)` in the JAX tool's
 order (the weights, the NaN choice, then one `band_pixels` per chromosome),
 so a seed gives the same counts and latents bit for bit.
 
-Instead of the .mcool it writes what `HiCDataModule.extract_constraint_mats`
-would write from it,
+By default it writes, instead of the .mcool, what
+`HiCDataModule.extract_constraint_mats` would write from it,
 
   <root>/DataFull/DataFull_Human_cell<n>_40000_deno_<sigma><marker>/Constraints/
       chrom_{i}_40000.txt   start1, start2, count * w[bin1] * w[bin2] (NaN -> 0)
@@ -23,9 +23,11 @@ prepares the single-cell percentile 99.99, whose cache ends in `_p99.99`,
 and inference adopts the checkpoint's percentile. With --latent-dir it also
 writes, per chromosome, `latent_chr{i}.npy` (the (n, band) pre-Poisson
 rates) and `weights_chr{i}.npy` (the bins' balancing weights, NaN kept), the
-inputs of tools/torch_latent_target.py.
+inputs of tools/torch_latent_target.py. With --mcool PATH it writes the
+JAX tool's .mcool instead, through the port's HDF5 writer.
 
   python tools/torch_make_fullscale_fixture.py --root DIR --latent-dir DIR/latent
+  python tools/torch_make_fullscale_fixture.py --mcool DIR/Datasets/Human/cell1_synth.mcool
 """
 import argparse
 import os
@@ -37,8 +39,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from hicdiff_tpu_torch.data.datamodule import GSE130711Module  # noqa: E402
 from hicdiff_tpu_torch.data.fastio import save_coo_txt  # noqa: E402
+from hicdiff_tpu_torch.data.mcool import write_cooler  # noqa: E402
 
-__all__ = ["HG19_BINS_40KB", "PATCH_BAND", "band_pixels", "make_fullscale", "constraints_dir"]
+__all__ = ["HG19_BINS_40KB", "PATCH_BAND", "band_pixels", "cell_pixels", "make_fullscale",
+           "make_fullscale_mcool", "constraints_dir"]
 
 # hg19 chromosome lengths // 40000 (chr1..chr22)
 HG19_BINS_40KB = [
@@ -104,27 +108,41 @@ def constraints_dir(root: str, sigma: float = 0.1, percentile: float = 99.99,
     return os.path.join(dm.dirname, "Constraints")
 
 
-def make_fullscale(outdir: str, res: int = 40000, seed: int = 7, bins_per_chrom=None,
-                   nan_weight_frac: float = 0.05, latent_dir: str = None,
-                   band: int = PATCH_BAND):
-    """Write chrom_{i}_{res,count}.txt for every chromosome into `outdir`
-    (and the latents and weights into `latent_dir`); returns (bins, pixels)."""
+def cell_pixels(seed: int = 7, bins_per_chrom=None, nan_weight_frac: float = 0.05,
+                band: int = PATCH_BAND):
+    """(weights, chromosomes) of the cell: the bins' balancing weights (NaN
+    kept), and an iterator over the chromosomes of (rows, cols, counts) in
+    the cooler's pixel order, with the (n, band) latent. The generator is
+    consumed in the JAX tool's order as the iterator advances."""
     bins_per_chrom = bins_per_chrom or HG19_BINS_40KB
     rng = np.random.default_rng(seed)
     n_bins = int(np.sum(bins_per_chrom))
     weights = rng.uniform(0.5, 1.5, size=n_bins)
     weights[rng.choice(n_bins, int(nan_weight_frac * n_bins), replace=False)] = np.nan
 
+    def chromosomes():
+        for n in bins_per_chrom:
+            latent_out = []
+            r, c, v = band_pixels(n, rng, band=band, latent_out=latent_out)
+            order = np.lexsort((c, r))  # the cooler's pixel order
+            yield r[order].astype(np.int64), c[order].astype(np.int64), v[order], latent_out[0]
+
+    return weights, chromosomes()
+
+
+def make_fullscale(outdir: str, res: int = 40000, seed: int = 7, bins_per_chrom=None,
+                   nan_weight_frac: float = 0.05, latent_dir: str = None,
+                   band: int = PATCH_BAND):
+    """Write chrom_{i}_{res,count}.txt for every chromosome into `outdir`
+    (and the latents and weights into `latent_dir`); returns (bins, pixels)."""
+    bins_per_chrom = bins_per_chrom or HG19_BINS_40KB
+    weights, chromosomes = cell_pixels(seed, bins_per_chrom, nan_weight_frac, band)
     os.makedirs(outdir, exist_ok=True)
     if latent_dir is not None:
         os.makedirs(latent_dir, exist_ok=True)
     offset, n_pixels = 0, 0
-    for ci, n in enumerate(bins_per_chrom):
-        latent_out = [] if latent_dir is not None else None
-        r, c, v = band_pixels(n, rng, band=band, latent_out=latent_out)
-        order = np.lexsort((c, r))  # the cooler's pixel order
-        r, c = r[order].astype(np.int64), c[order].astype(np.int64)
-        count = v[order].astype(np.float64)
+    for ci, (n, (r, c, v, latent)) in enumerate(zip(bins_per_chrom, chromosomes)):
+        count = v.astype(np.float64)
         w = weights[offset:offset + n]
         # McoolFile.fetch: count * w[bin1] * w[bin2], NaN -> 0
         balanced = np.nan_to_num(count * w[r] * w[c], nan=0.0)
@@ -134,11 +152,31 @@ def make_fullscale(outdir: str, res: int = 40000, seed: int = 7, bins_per_chrom=
         save_coo_txt(os.path.join(outdir, f"chrom_{ci + 1}_count.txt"),
                      np.stack([start1, start2, count], axis=1), int_value=True)
         if latent_dir is not None:
-            np.save(os.path.join(latent_dir, f"latent_chr{ci + 1}"), latent_out[0])
+            np.save(os.path.join(latent_dir, f"latent_chr{ci + 1}"), latent)
             np.save(os.path.join(latent_dir, f"weights_chr{ci + 1}"), w)
         offset += n
         n_pixels += len(r)
-    return n_bins, n_pixels
+    return int(np.sum(bins_per_chrom)), n_pixels
+
+
+def make_fullscale_mcool(path: str, res: int = 40000, seed: int = 7, bins_per_chrom=None,
+                         nan_weight_frac: float = 0.05, band: int = PATCH_BAND):
+    """Write the cell as the JAX tool's .mcool (int32 counts, the weights as
+    drawn) through the port's writer (`data/mcool.py:write_cooler`);
+    returns (bins, pixels)."""
+    bins_per_chrom = bins_per_chrom or HG19_BINS_40KB
+    weights, chromosomes = cell_pixels(seed, bins_per_chrom, nan_weight_frac, band)
+    bin1, bin2, count = [], [], []
+    offset = 0
+    for n, (r, c, v, _) in zip(bins_per_chrom, chromosomes):
+        bin1.append(r + offset)
+        bin2.append(c + offset)
+        count.append(v)
+        offset += n
+    bin1 = np.concatenate(bin1)
+    write_cooler(path, res, [f"chr{i + 1}" for i in range(len(bins_per_chrom))],
+                 bins_per_chrom, bin1, np.concatenate(bin2), np.concatenate(count), weights)
+    return offset, len(bin1)
 
 
 def main(argv=None):
@@ -157,7 +195,16 @@ def main(argv=None):
                     help="generated band width in bins (default: the patch band, 257)")
     ap.add_argument("--bins", type=int, default=None,
                     help="bins of every chromosome (default: hg19's at 40 kb)")
+    ap.add_argument("--mcool", default=None,
+                    help="write the cell as an .mcool at this path (the JAX tool's file, "
+                         "written by the port's HDF5 writer) instead of the contact lists")
     args = ap.parse_args(argv)
+    if args.mcool:
+        bins = [args.bins] * len(HG19_BINS_40KB) if args.bins else None
+        nb, npx = make_fullscale_mcool(args.mcool, seed=args.seed, bins_per_chrom=bins,
+                                       band=args.band)
+        print(f"wrote {args.mcool}: {nb} bins, {npx} pixels")
+        return
     outdir = constraints_dir(args.root, args.sigma, args.percentile)
     bins = [args.bins] * len(HG19_BINS_40KB) if args.bins else None
     nb, npx = make_fullscale(outdir, seed=args.seed, bins_per_chrom=bins,
