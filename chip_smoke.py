@@ -23,10 +23,9 @@ it writes as text: the data module prepares the caches,
 seeded random weights go through the port's checkpoint writer and reader,
 and the full-width fp32 model denoises the test split (120 patches in two
 batches of 64), timed with the harness's phase split, with the quartet, the
-metrics and the launch counters checked; the same run's profile gives the
-device breakdown; then a deterministic DDIM run is held
-to the plain path on the CPU on its first 8 patches and 8 more spread over
-both batches. Both kernels are also held to their plain versions at the
+metrics and the launch counters checked; then a deterministic DDIM run is
+held to the plain path on the CPU on its first 8 patches and 8 more spread
+over both batches. Both kernels are also held to their plain versions at the
 CLI's batch of 64 (phases 2 and 3).
 
 Training (fp32, `-u 0`): phase `fused_resblock_backward` holds the block's
@@ -41,9 +40,8 @@ for one epoch of the full-width model at batch 64 on a synthetic cell
 written as text (three full batches and a ragged one), checks by the launch
 counters that every block's forward and backward went through the kernels,
 splits each step's time into loss, backward and update by CUDA events,
-reads the peak device memory and the checkpoints, profiles three more steps
-for the idle share, and denoises the test split from the final checkpoint
-with the port's inference (DDIM, 2 steps). Phase `train_step_vs_plain`
+reads the peak device memory and the checkpoints, and denoises the test
+split from the final checkpoint with the port's inference (DDIM, 2 steps). Phase `train_step_vs_plain`
 holds two full-width steps on the card to the same steps on the CPU (batch
 2): both losses, every gradient of the second step, each weight's update,
 and the conv packs the second step read.
@@ -57,7 +55,7 @@ zero-noise chain of the full-width backbone at batch 2 on the card and on
 the CPU (deno truncated at t* = 27, inp_mask with 10 steps) within 1e-3;
 `inference_cli_ddrm` drives the -u 1 CLI over the 120-patch cell in fp32
 (deno --t-start auto, inp_mask --sampling-steps 10) with the quartet,
-metrics, launch counters and each run's profile; `serve_ddrm` serves 2+1
+metrics and launch counters; `serve_ddrm` serves 2+1
 requests from ddrm services in fp32 and bf16, then an inp_mask service
 answers a (8, 2048) measurement request and refuses a (8, 4096) one;
 `train_uncond` trains `train_torch.py -u 1` for one epoch and restores the
@@ -72,7 +70,8 @@ batch 8 and 64; `inference_cli_zoo` drives `inference_torch.py --model`
 over the 120-patch cell from checkpoints the port's codec writes under
 pretrain.py's tags (-u 0 hicedrn_sr3: the sr3 engine's ancestral chain,
 one posterior step a forward; -u 0 unet; -u 1 hicedrn_att through DDRM),
-each profiled once, and holds a DDIM sr3 run to the CPU on 16 patches;
+each chain cut to ZOO_CLI_FORWARDS forwards, and holds a DDIM sr3 run to
+the CPU on 16 patches;
 `pretrain_zoo` runs `pretrain_torch.py` for one epoch three times (sr3,
 uncond on pure_noise data, cond) with step splits and peak memory; and
 `zoo_step_vs_plain` takes two sr3 and two att steps card against CPU.
@@ -101,7 +100,7 @@ or 7's batch-64 row. The train phases check by the
 wrappers' per-mode counts that each step launches modes 3 and 4 once a
 block. `train_bf16` and
 `train_uncond_bf16` run train_torch.py --bf16 for an epoch (launch counters,
-step split, peak memory, three profiled steps); `train_step_vs_plain` and
+step split, peak memory); `train_step_vs_plain` and
 `zoo_step_vs_plain` in bf16 hold two steps of base, sr3 and att card against
 CPU (losses within 1e-2 relative; each gradient no farther from the CPU's
 bf16 gradient than that lies from the CPU's fp32 one); `pretrain_zoo` runs
@@ -141,19 +140,20 @@ runs its --baselines mode on a synthetic cell of the same size (eight
 sources). `insulation` holds the insulation vectors, InsulationLoss and
 computeInsulation on the card to the CPU. `stard_metric_cond` and
 `stard_metric_diff` run the two metric scripts at full width in fp32 with their
-chain cut to --timestep 20, each once under the profiler, with the launch
-counters checked.
+chain cut to --timestep 20, with the launch counters checked.
 
-Phase 14, `fullscale_fixture`: the full-scale quality protocol's tools at
+Phase 14, `fullscale_fixture`: the full-scale quality protocols' tools at
 reduced bins. tools/torch_make_fullscale_fixture.py (seed 7, band 257, 22
 chromosomes of 512 bins) writes the contact lists, latents and weights;
 the bf16 -u 0 CLI runs `--sampling-steps 1` on a seeded full-width
 checkpoint over the 120 test patches (one conv pair a block a batch, no
-posterior step); tools/torch_latent_target.py builds `latent.npy` (the
-target's shape, correlation with it above 0.9) and
-tools/torch_quartet_metrics.py scores prediction, identity and realized
-target against it (every metric finite). Phase 15, `engine_options`: on a
-full-width hicedrn of 2 blocks at batch 8, each objective (pred_noise l2,
+posterior step), and the bf16 -u 1 CLI (`--schedule linear --t-start
+auto`, DDRM deno at t*=27) on a seeded full-width unconditional checkpoint
+at the linear schedule (28 forwards a batch, no posterior step);
+tools/torch_latent_target.py builds each run's `latent.npy` (the target's
+shape, correlation with it above 0.9) and tools/torch_quartet_metrics.py
+scores prediction, identity and realized target against it (every metric
+finite). Phase 15, `engine_options`: on a full-width hicedrn of 2 blocks at batch 8, each objective (pred_noise l2,
 pred_x0 and pred_v l1, p2 gamma 0.5) holds its loss (1e-5 relative) and
 gradients (BWD_TOL) to the CPU, a truncated DDIM chain with the x0 clip
 off returns every state (1e-4 of the largest), and the 30-step ancestral
@@ -247,6 +247,7 @@ HBM_BYTES_PER_S = 3.35e12
 CONV_KERNELS = ("conv3x3_bf16_kernel", "conv3x3_bf16_persistent_kernel", "conv3x3_3xtf32_kernel")
 FULLSCALE_BINS, FULLSCALE_BAND = 512, 257  # the fullscale_fixture phase: 22 chromosomes of 512 bins
 ENGINE_BLOCKS, ENGINE_BATCH = 2, 8          # engine_options: a full-width hicedrn of 2 blocks
+ZOO_CLI_FORWARDS = 10  # inference_cli_zoo's three --model chains, cut to this depth
 
 
 def phase(name, t0, **fields):
@@ -259,14 +260,14 @@ def check(ok, what):
         raise AssertionError(what)
 
 
-def cuda_ms(fn, iters=20, reps=3):
+def cuda_ms(fn, iters=20, reps=3, warmup=3):
     """Time of fn() by CUDA events: the median over `reps` runs of the mean
-    time of `iters` back-to-back calls, after three warm-up calls. Each run
+    time of `iters` back-to-back calls, after `warmup` warm-up calls. Each run
     enqueues one more call before its start event, so that the host prepares
     the first timed call while the device works: else that call's enqueue
     time lies between the start event and its first launch. What is left is
     device time plus any gaps where the device waits for the host."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     runs = []
@@ -349,32 +350,13 @@ def device_breakdown(ops):
 
 
 @contextlib.contextmanager
-def profiled_run(out):
-    """Profile (device activity only) and time the CLI run in the block:
-    out["wall_s"] is its wall and out["prof"] the profile. The tracer costs a
-    CLI run about 1-3 % of its wall, so one run gives the timed numbers and
-    the device breakdown."""
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        time.sleep(0.2)  # as in serve_and_profile: let the tracer settle
-        tr = time.time()
-        yield out
-        torch.cuda.synchronize()
-        out["wall_s"] = time.time() - tr
-        time.sleep(0.2)
-    out["prof"] = prof
-
-
-def profiled_phase(phase_name, run, t0, out, metrics_s, card):
-    """The `{run}_profiled` line of a profiled_run: device busy time and the
-    idle share of the run's wall less the host's metrics (the device idles
-    through them, and the separate profiled run these lines once came from
-    left them out)."""
-    ops = device_ops(out["prof"])
-    busy_us, _, ours, top = device_breakdown(ops)
-    wall_s = out["wall_s"] - metrics_s
-    phase(phase_name, t0, run=f"{run}_profiled", profiled_wall_s=wall_s,
-          device_busy_s=busy_us / 1e6, idle_share_of_wall=1 - busy_us / 1e6 / wall_s,
-          device_launches=len(ops), kernels=ours, top=top, card=card)
+def timed_run(out):
+    """Time the CLI run in the block to the end of its device work:
+    out["wall_s"] is its wall."""
+    tr = time.time()
+    yield out
+    torch.cuda.synchronize()
+    out["wall_s"] = time.time() - tr
 
 
 def profiled_ms(fn, iters=20, reps=1, timeline=False):
@@ -610,8 +592,7 @@ def cli_bf16_run(phase_name, run, dev, card, kw, want_launches):
     """The CLI run of `kw` again with --bf16 (`inference_torch.Inference(bf16=
     True)`): launch counters (`want_launches`, those of the fp32 run: the
     same kernels a step), the quartet's prediction finite, the metrics,
-    wall time and patches/s with the harness's split; the same run's
-    profile gives the idle share and the device breakdown. Returns the run's
+    wall time and patches/s with the harness's split. Returns the run's
     result."""
     import inference_torch
     from hicdiff_tpu_torch.kernels.resblock import fused_resblock
@@ -620,7 +601,7 @@ def cli_bf16_run(phase_name, run, dev, card, kw, want_launches):
     fused_resblock.launches = 0
     fused_posterior_step.launches = 0
     tr = time.time()
-    with profiled_run({}) as run_p:
+    with timed_run({}) as run_p:
         res = inference_torch.Inference(device=dev, bf16=True, out_tag="_bf16", **kw)
     wall_s = run_p["wall_s"]
     launches = dict(resblock_launches=fused_resblock.launches,
@@ -640,7 +621,6 @@ def cli_bf16_run(phase_name, run, dev, card, kw, want_launches):
           patches_per_s=n / wall_s, setup_s=tm["setup"], dispatch_s=tm["dispatch"],
           fetch_s=tm["fetch"], metrics_s=tm["metrics"], save_s=tm["save"], **launches,
           metrics=metrics, predict_abs_max=float(np.abs(pred).max()), card=card)
-    profiled_phase(phase_name, f"{run}_bf16", time.time(), run_p, tm["metrics"], card)
     return res
 
 
@@ -680,7 +660,7 @@ def inference_cli(dev, card):
         os.environ["HICDIFF_EVAL_TIMING"] = "1"
         fused_resblock.launches = 0
         fused_posterior_step.launches = 0
-        with profiled_run({}) as run_p:
+        with timed_run({}) as run_p:
             res = inference_torch.Inference(device=dev, **kw)
         wall_s = run_p["wall_s"]
         resblock_launches, step_launches = fused_resblock.launches, fused_posterior_step.launches
@@ -715,8 +695,6 @@ def inference_cli(dev, card):
               metrics_s_per_batch=tm["metrics_per_batch"],
               resblock_launches=resblock_launches, posterior_step_launches=step_launches,
               metrics=metrics, card=card)
-        # the same run's device breakdown
-        profiled_phase("inference_cli", "default", time.time(), run_p, tm["metrics"], card)
 
         # run 2: deterministic (DDIM, eta 0), held to the plain path on the CPU on
         # the first 8 patches and 8 more spread over both batches' M-tiles
@@ -1453,12 +1431,11 @@ def train(dev, card, condition=False, bf16=False):
     """Drive `train_torch.py`'s entry class on the card: one epoch of the
     full-width model at batch 64 on a synthetic cell written as text, the
     launch counters, step times split by CUDA events, peak memory, the
-    checkpoints. condition=False (-u 0, phase `train`): three more steps
-    under the profiler for the idle share, then the -u 0 inference on the
-    final checkpoint (DDIM, 2 steps). condition=True (-u 1, phase
-    `train_uncond`): the unconditional model on the clean patches, then the
-    -u 1 CLI restores the test split through DDRM (deno, t* = 27, 2
-    sampling steps: 3 forwards) from the checkpoint it finds by its tag,
+    checkpoints. condition=False (-u 0, phase `train`): then the -u 0
+    inference on the final checkpoint (DDIM, 2 steps). condition=True (-u
+    1, phase `train_uncond`): the unconditional model on the clean patches,
+    then the -u 1 CLI restores the test split through DDRM (deno, t* = 27,
+    2 sampling steps: 3 forwards) from the checkpoint it finds by its tag,
     with no --weights (bestg: after one epoch, the final step's weights).
     bf16 (phases `train_bf16`, `train_uncond_bf16`): train_torch.py --bf16,
     every block through the bf16 kernels, and the inference in bf16.
@@ -1468,7 +1445,6 @@ def train(dev, card, condition=False, bf16=False):
     from hicdiff_tpu_torch.data.datamodule import HUMAN_SPLITS
     from hicdiff_tpu_torch.sampling.ddrm import _build_seq
     from hicdiff_tpu_torch.train.checkpoint import checkpoint_name
-    from hicdiff_tpu_torch.train.trainer import step_generator
 
     name = ("train_uncond" if condition else "train") + ("_bf16" if bf16 else "")
     t0 = time.time()
@@ -1540,34 +1516,6 @@ def train(dev, card, condition=False, bf16=False):
               cut="data scale only: 14 train chromosomes of 320 bins (hg19's have "
                   "1,200-6,200 at 40 kb); full width and depth", card=card)
         run.trainer.time_steps = False
-
-        if not condition:
-            # three full steps under the profiler: where the device time goes
-            data, target, _, _ = next(iter(run.train_loader))
-            run.trainer.train_step(data, target, generator=step_generator(1, 0))
-            torch.cuda.synchronize()
-            tr = time.time()
-            with torch.profiler.profile(
-                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                time.sleep(0.2)  # as in serve_and_profile: let the tracer settle
-                tp = time.time()
-                for i in range(3):
-                    run.trainer.train_step(data, target, generator=step_generator(1, 1 + i))
-                torch.cuda.synchronize()
-                profiled_s = time.time() - tp
-                time.sleep(0.2)
-            ops = device_ops(prof)
-            busy_us, _, _, top = device_breakdown(ops)
-            ours = {}
-            for key in (*CONV_KERNELS, "wgrad_3xtf32_kernel", "wgrad_bf16_kernel",
-                        "sum_splits_kernel", "channel_sums_partial_kernel",
-                        "channel_sums_final_kernel"):
-                hits = [d for n, _, d in ops if key in n]
-                ours[key] = {"launches": len(hits), "ms": sum(hits) / 1e3}
-            phase(name, tr, run="profiled_steps", steps=3, batch=TRAIN_BATCH,
-                  profiled_wall_s=profiled_s, device_busy_s=busy_us / 1e6,
-                  idle_share_of_wall=1 - busy_us / 1e6 / profiled_s, kernels=ours, top=top,
-                  card=card)
 
         # the port's inference on the trained checkpoint
         tr = time.time()
@@ -1862,8 +1810,7 @@ def inference_cli_ddrm(dev, card):
     --t-start auto (28 forwards a batch) and inp_mask with --sampling-steps
     10 (a null space: the full grid of 10), seeded random unconditional
     weights through the port's checkpoint writer. Checks the quartet, finite
-    predictions, the metrics and the launch counters; then a profiled
-    repeat of each gives the device breakdown. Returns the deno run's
+    predictions, the metrics and the launch counters. Returns the deno run's
     launch counts."""
     import inference_torch
     from hicdiff_tpu_torch.convert import params_to_jax
@@ -1898,7 +1845,7 @@ def inference_cli_ddrm(dev, card):
             fused_resblock.launches = 0
             fused_posterior_step.launches = 0
             tr = time.time()
-            with profiled_run({}) as run_p:
+            with timed_run({}) as run_p:
                 res = inference_torch.Inference(device=dev, deg=deg, **kw, **extra)
             wall_s = run_p["wall_s"]
             resblock_launches = fused_resblock.launches
@@ -1934,8 +1881,6 @@ def inference_cli_ddrm(dev, card):
                   resblock_launches=resblock_launches, posterior_step_launches=step_launches,
                   metrics=metrics, predict_abs_max=float(np.abs(pred).max()), card=card)
             counts[deg] = dict(resblock_launches=resblock_launches, step_launches=step_launches)
-            # the same run's device breakdown
-            profiled_phase("inference_cli_ddrm", deg, time.time(), run_p, tm["metrics"], card)
             if deg == "deno":  # the -u 1 default with --bf16
                 cli_bf16_run("inference_cli_ddrm", deg, dev, card, dict(deg=deg, **kw, **extra),
                              counts[deg])
@@ -2075,10 +2020,10 @@ def zoo_forward(dev, card):
                 want_stream = BLOCKS - 2 if dt is not None and name == "hicedrn_att" else 0
                 check(stream == want_stream,
                       f"zoo_forward {name}{tag}: {stream} fp32-stream launches a forward")
-                ms8 = cuda_ms(lambda: gpu(*args), iters=3)
-                ms64 = cuda_ms(lambda: gpu(*big), iters=2)
+                ms8 = cuda_ms(lambda: gpu(*args), iters=3, reps=1, warmup=1)
+                ms64 = cuda_ms(lambda: gpu(*big), iters=1, reps=1, warmup=1)
                 # the host's enqueue of one batch-8 forward: above ms8 = host-bound
-                host8 = host_us(lambda: gpu(*args), iters=3, reps=3) / 1e3
+                host8 = host_us(lambda: gpu(*args), iters=3, reps=1) / 1e3
                 if dt is None:
                     want32 = want
                 else:  # how far bf16 lies from fp32 here, beside the bar
@@ -2105,11 +2050,11 @@ def inference_cli_zoo(dev, card):
     """Drive `inference_torch.Inference` with --model on the card over the
     inference_cli phase's 120-patch synthetic cell, fp32, batch 64, each
     backbone's seeded random weights written by the port's codec in the JAX
-    layout under the tag the CLI looks for (no --weights): -u 0 hicedrn_sr3
-    (the sr3 engine's truncated ancestral chain, t* = 29), -u 0 unet (the
-    cond engine's chain), -u 1 hicedrn_att (DDRM deno, t* = 27). Each: the
-    quartet, the metrics, the launch counters, and the same run's profile
-    for the idle share and top kernels. Last, a deterministic -u 0 hicedrn_sr3 run
+    layout under the tag the CLI looks for (no --weights), each chain cut to
+    ZOO_CLI_FORWARDS forwards: -u 0 hicedrn_sr3 (the sr3 engine's truncated
+    ancestral chain), -u 0 unet (the cond engine's chain), -u 1 hicedrn_att
+    (DDRM deno, t* auto on the cut grid). Each: the quartet, the metrics,
+    the launch counters and the wall. Last, a deterministic -u 0 hicedrn_sr3 run
     (DDIM, 2 steps) held to the CPU plain path on 16 patches. Returns the
     launch counts of each run."""
     import inference_torch
@@ -2123,10 +2068,15 @@ def inference_cli_zoo(dev, card):
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     root = tempfile.mkdtemp(prefix="smoke_zoo_", dir=os.path.join(ROOT, "build"))
     counts = {}
-    runs = (  # (model, -u, mode, schedule, extra, forwards a batch)
-        ("hicedrn_sr3", 0, "sr3", "sigmoid", {}, 30),
-        ("unet", 0, "cond", "sigmoid", {}, 30),
-        ("hicedrn_att", 1, "uncond", "linear", dict(deg="deno"), 28),
+    # (model, -u, mode, schedule, extra, forwards a batch): each chain cut to
+    # ZOO_CLI_FORWARDS (depth): -u 0 from t = ZOO_CLI_FORWARDS - 1, -u 1 DDRM
+    # deno at t* auto on a grid of ZOO_CLI_FORWARDS
+    runs = (
+        ("hicedrn_sr3", 0, "sr3", "sigmoid", dict(t_start=ZOO_CLI_FORWARDS - 1),
+         ZOO_CLI_FORWARDS),
+        ("unet", 0, "cond", "sigmoid", dict(t_start=ZOO_CLI_FORWARDS - 1), ZOO_CLI_FORWARDS),
+        ("hicedrn_att", 1, "uncond", "linear",
+         dict(deg="deno", t_start="auto", sampling_steps=ZOO_CLI_FORWARDS), ZOO_CLI_FORWARDS),
     )
     # the registry's other --model paths, each once at 2 sampling steps
     short = (("hicedrn_att", 0, "cond", "sigmoid"), ("unet_sr3", 0, "sr3", "sigmoid"),
@@ -2147,10 +2097,10 @@ def inference_cli_zoo(dev, card):
             tr = time.time()
             kw = dict(batch_size=CLI_BATCH, cellNo=1, cell_Line="Human", sigma_t=SIGMA,
                       condition=bool(u), root=root, schedule=schedule, timestep=1000,
-                      t_start="auto", model_name=name, **extra)
+                      model_name=name, **extra)
             fused_resblock.launches = 0
             fused_posterior_step.launches = 0
-            with profiled_run({}) as run_p:
+            with timed_run({}) as run_p:
                 res = inference_torch.Inference(device=dev, **kw)
             wall_s = run_p["wall_s"]
             resblock_launches, step_launches = (fused_resblock.launches,
@@ -2177,16 +2127,15 @@ def inference_cli_zoo(dev, card):
             phase("inference_cli_zoo", tr if counts else t0, run=run, model=name, mode=mode,
                   dtype="float32", sigma=SIGMA, forwards=forwards, batch=CLI_BATCH, patches=n,
                   batches=batches, outdir=os.path.basename(res["outdir"]),
-                  cut=f"data scale only: {len(CLI_TEST_CHROMS)} test chromosomes of "
-                      f"{CLI_TEST_BINS} bins, the rest {CLI_OTHER_BINS}; the registry's widths",
+                  cut=f"{len(CLI_TEST_CHROMS)} test chromosomes of {CLI_TEST_BINS} bins, the "
+                      f"rest {CLI_OTHER_BINS}; the registry's widths; the chain's depth "
+                      f"{ZOO_CLI_FORWARDS} forwards",
                   prep_s=prep_s, run_wall_s=wall_s, patches_per_s=n / wall_s,
                   setup_s=tm["setup"], dispatch_s=tm["dispatch"], fetch_s=tm["fetch"],
                   metrics_s=tm["metrics"], save_s=tm["save"],
                   resblock_launches=resblock_launches, posterior_step_launches=step_launches,
                   metrics=metrics, card=card)
             counts[run] = dict(resblock_launches=resblock_launches, step_launches=step_launches)
-            # the same run's device breakdown
-            profiled_phase("inference_cli_zoo", run, time.time(), run_p, tm["metrics"], card)
 
         # deterministic: -u 0 hicedrn_sr3, DDIM eta 0, 2 steps, against the CPU plain path
         tr = time.time()
@@ -2419,7 +2368,7 @@ def baselines_forward(dev, card):
             check(err <= BASELINE_TOL * scale,
                   f"baselines_forward {name}: max-abs {err} > {BASELINE_TOL} x {scale}")
             heavy = type(cpu).__name__ == "HicedrnGenerator"  # 66 convs at 256 channels
-            ms = cuda_ms(lambda: gpu(x64), iters=2 if heavy else 10)
+            ms = cuda_ms(lambda: gpu(x64), iters=1 if heavy else 5, reps=1, warmup=1)
         check(_port_kernel_launches() == launched, f"baselines_forward {name}: a port kernel ran")
         phase("baselines_forward", t0, model=name, cls=type(cpu).__name__,
               params=sum(p.numel() for p in cpu.parameters()), shape_batch8=tuple(x8.shape),
@@ -2871,10 +2820,9 @@ def stard_metric_scripts(dev, card, root, cond_ckpt, uncond_ckpt):
     the card over the cell's 120 test patches at full width in fp32, their
     chains cut to --timestep ANALYSIS_TIMESTEP (cond: the full sigmoid chain
     of that many ancestral steps; diff: DDRM on the linear betas with that
-    many steps of the 1000), each run once under the profiler: the launch
-    counters as the inference_cli phase checks them, the quartet and the
-    metrics, wall s, chain steps/s and the device's idle share. Returns
-    their launch counts."""
+    many steps of the 1000): the launch counters as the inference_cli phase
+    checks them, the quartet and the metrics, wall s and chain steps/s.
+    Returns their launch counts."""
     import sample.stard_metric_cond_torch as smc
     import sample.stard_metric_diff_torch as smd
     from hicdiff_tpu_torch.kernels.resblock import fused_resblock
@@ -2892,15 +2840,11 @@ def stard_metric_scripts(dev, card, root, cond_ckpt, uncond_ckpt):
         t0 = time.time()
         fused_resblock.launches = 0
         fused_posterior_step.launches = 0
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            time.sleep(0.2)  # as in serve_and_profile: let the tracer settle
-            tp = time.time()
+        with timed_run({}) as run_p:
             res = mod.main(["-n", "1", "-l", "Human", "-s", str(SIGMA), "--root", root,
                             "--timestep", str(ANALYSIS_TIMESTEP), "--weights", ckpt,
                             "--device", str(dev)])
-            torch.cuda.synchronize()
-            wall_s = time.time() - tp
-            time.sleep(0.2)
+        wall_s = run_p["wall_s"]
         launches = dict(resblock_launches=fused_resblock.launches,
                         step_launches=fused_posterior_step.launches)
         n = len(res["inds"])
@@ -2916,15 +2860,12 @@ def stard_metric_scripts(dev, card, root, cond_ckpt, uncond_ckpt):
         metrics = res["metrics"]
         check(len(metrics) == 7 and all(np.isfinite(v) for v in metrics.values()),
               f"{name} metrics: {metrics}")
-        busy_us, _, ours, top = device_breakdown(device_ops(prof))
         phase(name, t0, dtype="float32", sigma=SIGMA, timestep=ANALYSIS_TIMESTEP,
               forwards=forwards, blocks=BLOCKS, features=FEATURES, batch=CLI_BATCH, patches=n,
               batches=batches, cut=f"chain: --timestep {ANALYSIS_TIMESTEP} (default 1000); "
                                    "data scale as inference_cli; full width and depth",
-              profiled_wall_s=wall_s, steps_per_s=batches * forwards / wall_s,
-              patches_per_s=n / wall_s, device_busy_s=busy_us / 1e6,
-              idle_share_of_wall=1 - busy_us / 1e6 / wall_s, **launches, kernels=ours, top=top,
-              metrics=metrics, card=card)
+              run_wall_s=wall_s, steps_per_s=batches * forwards / wall_s,
+              patches_per_s=n / wall_s, **launches, metrics=metrics, card=card)
         counts[name] = launches
     return counts
 
@@ -2966,15 +2907,17 @@ def analysis_tail(dev, card, quartet, quartet_name):
 
 
 def fullscale_fixture(dev, card):
-    """Phase 14: the full-scale protocol's tools at reduced bins. The port's
+    """Phase 14: the full-scale protocols' tools at reduced bins. The port's
     fixture generator (tools/torch_make_fullscale_fixture.py: seed 7, band
     257, 22 chromosomes of 512 bins) writes the contact lists into the
     trainer's `_p99.99` cache with the latents and weights; the data module
     prepares from them; the bf16 -u 0 CLI runs `--sampling-steps 1` over the
-    test split on a seeded full-width checkpoint trained at 99.99; then
+    test split on a seeded full-width checkpoint trained at 99.99, and the
+    bf16 -u 1 CLI (DDRM deno, `--t-start auto`) on a seeded full-width
+    unconditional one at the linear schedule; then
     tools/torch_latent_target.py and tools/torch_quartet_metrics.py score
-    the prediction, the identity row and the realized target against the
-    latent. Returns the CLI's launch counts."""
+    each run's prediction, identity row and realized target against the
+    latent. Returns each CLI's launch counts."""
     import inference_torch
     from hicdiff_tpu_torch.convert import params_to_jax
     from hicdiff_tpu_torch.kernels.resblock import fused_resblock
@@ -2994,50 +2937,66 @@ def fullscale_fixture(dev, card):
                                           bins_per_chrom=[FULLSCALE_BINS] * 22,
                                           latent_dir=latent_dir, band=FULLSCALE_BAND)
         fixture_s = time.time() - t0
-        model = HicedrnDiff(self_condition=True, number_resnet=BLOCKS, features=FEATURES,
-                            device="cpu", generator=torch.Generator().manual_seed(5))
-        ckpt = os.path.join(root, "Model_Weights", "random.msgpack")
-        save_checkpoint(ckpt, params_to_jax(model.state_dict()), run_config=dict(
-            sigma=SIGMA, schedule="sigmoid", mode="cond", timestep=1000, percentile=99.99))
-        del model
-        fused_resblock.launches = 0
-        fused_posterior_step.launches = 0
-        tr = time.time()
-        res = inference_torch.Inference(
-            batch_size=CLI_BATCH, sigma_t=SIGMA, condition=False, root=root, schedule="sigmoid",
-            timestep=1000, bf16=True, weights=ckpt, sampling_steps=1, t_start="auto",
-            blocks=BLOCKS, features=FEATURES, compute_metrics=False, device=dev)
-        torch.cuda.synchronize()
-        cli_s = time.time() - tr
-        launches = dict(resblock_launches=fused_resblock.launches,
-                        step_launches=fused_posterior_step.launches)
-        n = len(res["inds"])
-        batches = -(-n // CLI_BATCH)
-        check(res["data_dir"].endswith("_p99.99"), f"fullscale_fixture: cache {res['data_dir']}")
-        check(n == len(CLI_TEST_CHROMS) * 30, f"fullscale_fixture: {n} test patches")
-        # DDIM K=1: one forward a batch, no ancestral step
-        check(launches == dict(resblock_launches=batches * BLOCKS * 2, step_launches=0),
-              f"fullscale_fixture launches {launches}")
-        tr = time.time()
-        info = build_latent_npy(res["outdir"], res["data_dir"], latent_dir, percentile=99.99)
-        target = np.load(os.path.join(res["outdir"], "target.npy"))
-        latent = np.load(os.path.join(res["outdir"], "latent.npy"))
-        check(latent.shape == target.shape == (n, 1, 64, 64),
-              f"fullscale_fixture: latent {latent.shape} vs target {target.shape}")
-        check(info["corr_latent_target"] > 0.9, f"fullscale_fixture: {info}")
-        scores = {f"{p}_vs_latent": score_quartet(res["outdir"], p, target_file="latent.npy")
-                  for p in ("predict", "noisy", "target")}
-        check(all(np.isfinite(v) for s in scores.values() for v in s.values()),
-              f"fullscale_fixture scores: {scores}")
+        runs = {}
+        # -u 0 at K=1 (one forward a batch), -u 1 DDRM deno at t*=27 (28 forwards)
+        for name, uncond, schedule, seed, steps, forwards in (
+                ("cond_k1", False, "sigmoid", 5, 1, 1), ("ddrm", True, "linear", 6, None, 28)):
+            model = HicedrnDiff(self_condition=not uncond, number_resnet=BLOCKS,
+                                features=FEATURES, device="cpu",
+                                generator=torch.Generator().manual_seed(seed))
+            ckpt = os.path.join(root, "Model_Weights", f"random_{name}.msgpack")
+            save_checkpoint(ckpt, params_to_jax(model.state_dict()), run_config=dict(
+                sigma=SIGMA, schedule=schedule, mode="uncond" if uncond else "cond",
+                timestep=1000, percentile=99.99))
+            del model
+            fused_resblock.launches = 0
+            fused_posterior_step.launches = 0
+            tr = time.time()
+            res = inference_torch.Inference(
+                batch_size=CLI_BATCH, sigma_t=SIGMA, condition=uncond, root=root,
+                schedule=schedule, timestep=1000, bf16=True, weights=ckpt,
+                sampling_steps=steps, t_start="auto", use_ema=False, blocks=BLOCKS,
+                features=FEATURES, compute_metrics=False, device=dev)
+            torch.cuda.synchronize()
+            cli_s = time.time() - tr
+            launches = dict(resblock_launches=fused_resblock.launches,
+                            step_launches=fused_posterior_step.launches)
+            n = len(res["inds"])
+            batches = -(-n // CLI_BATCH)
+            check(res["data_dir"].endswith("_p99.99"),
+                  f"fullscale_fixture {name}: cache {res['data_dir']}")
+            check(n == len(CLI_TEST_CHROMS) * 30, f"fullscale_fixture {name}: {n} test patches")
+            check(not uncond or res["outdir"].endswith("_trans2_1000_ts27"),
+                  f"fullscale_fixture {name}: {res['outdir']}")
+            # no ancestral step on either path: DDIM K=1 and DDRM have their own updates
+            check(launches == dict(resblock_launches=batches * forwards * BLOCKS * 2,
+                                   step_launches=0),
+                  f"fullscale_fixture {name} launches {launches}")
+            tr = time.time()
+            info = build_latent_npy(res["outdir"], res["data_dir"], latent_dir,
+                                    percentile=99.99)
+            target = np.load(os.path.join(res["outdir"], "target.npy"))
+            latent = np.load(os.path.join(res["outdir"], "latent.npy"))
+            check(latent.shape == target.shape == (n, 1, 64, 64),
+                  f"fullscale_fixture {name}: latent {latent.shape} vs target {target.shape}")
+            check(info["corr_latent_target"] > 0.9, f"fullscale_fixture {name}: {info}")
+            scores = {f"{p}_vs_latent": score_quartet(res["outdir"], p, target_file="latent.npy")
+                      for p in ("predict", "noisy", "target")}
+            check(all(np.isfinite(v) for s in scores.values() for v in s.values()),
+                  f"fullscale_fixture {name} scores: {scores}")
+            runs[name] = dict(
+                cli_s=cli_s, score_s=time.time() - tr, patches=n, batches=batches,
+                schedule=schedule, sampling_steps=steps, forwards_per_batch=forwards,
+                **launches, corr_latent_target=info["corr_latent_target"],
+                speckle_rms=info["speckle_rms"],
+                scores={k: {m: v[m] for m in ("pas_ssim", "pas_psnr", "pas_pcc")}
+                        for k, v in scores.items()})
         phase("fullscale_fixture", t0, bins=n_bins, pixels=n_pixels, band=FULLSCALE_BAND,
-              seed=7, fixture_s=fixture_s, cli_s=cli_s, score_s=time.time() - tr, patches=n,
-              dtype="bfloat16", sampling_steps=1, **launches,
-              corr_latent_target=info["corr_latent_target"], speckle_rms=info["speckle_rms"],
-              scores={k: {m: v[m] for m in ("pas_ssim", "pas_psnr", "pas_pcc")}
-                      for k, v in scores.items()},
+              seed=7, fixture_s=fixture_s, dtype="bfloat16", t_start_ddrm=27, **runs,
               cut=f"data scale only: {FULLSCALE_BINS} bins a chromosome of hg19's 1,203-6,232",
               card=card)
-        return launches
+        return {name: {k: r[k] for k in ("resblock_launches", "step_launches")}
+                for name, r in runs.items()}
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -4387,7 +4346,8 @@ def main():
          "launches_cli_zoo": {k: v["resblock_launches"] for k, v in zoo_cli.items()},
          "launches_pretrain_zoo": {k: v["fused_resblock"] for k, v in zoo_pre.items()},
          "launches_stard_metric": {k: v["resblock_launches"] for k, v in scripts.items()},
-         "launches_fullscale_cli_k1": fullscale["resblock_launches"],
+         "launches_fullscale_cli_k1": fullscale["cond_k1"]["resblock_launches"],
+         "launches_fullscale_cli_ddrm": fullscale["ddrm"]["resblock_launches"],
          "launches_engine_options_chain": {k: v["resblock_launches"]
                                            for k, v in options.items()},
          "launches_data_parallel_rank0": {k: v["fused_resblock"] for k, v in dp.items()},
@@ -4410,7 +4370,8 @@ def main():
          "launches_ddrm_cli": cli_ddrm["step_launches"],
          "launches_cli_zoo": {k: v["step_launches"] for k, v in zoo_cli.items()},
          "launches_stard_metric": {k: v["step_launches"] for k, v in scripts.items()},
-         "launches_fullscale_cli_k1": fullscale["step_launches"],
+         "launches_fullscale_cli_k1": fullscale["cond_k1"]["step_launches"],
+         "launches_fullscale_cli_ddrm": fullscale["ddrm"]["step_launches"],
          "launches_engine_options_chain": {k: v["step_launches"] for k, v in options.items()},
          "launches_data_parallel_rank0": {k: v["fused_posterior_step"] for k, v in dp.items()},
          "launches_data_parallel_sampling": {
