@@ -83,3 +83,104 @@ def test_train_seed_reaches_the_trainer(tmp_path, fit_seeds):
     _assert_scores(s["t29"], ["predict_vs_latent", "predict_vs_target", "noisy_vs_latent",
                               "noisy_vs_target", "target_vs_latent"])
     _assert_scores(s["k1"], ["predict_vs_latent", "predict_vs_target"])
+
+
+# --spread: JAX's rows as the artifact prints them, cut to the lines the
+# tool reads, and per-seed summaries written by hand
+JAX_TABLES = """## sigma=0.1 truncated t*=29 (full cell, 5,185 patches)
+--- predict vs realized target:
+{"pas_ssim": 0.1, "pas_psnr": 1.0, "pas_mse": 1.0, "pas_snr": 1.0, "pas_pcc": 0.1, "pas_spc": 0.1, "pas_gds": 0.1}
+--- predict vs latent:
+{"dir": "x", "predict": "predict", "target": "latent.npy", "pas_ssim": 0.86, "pas_psnr": 34.5, "pas_mse": 0.0003, "pas_snr": 1750000.0, "pas_pcc": 0.97, "pas_spc": 0.5, "pas_gds": 0.56}
+
+## sigma=0.1 DDIM K=1 (full cell)
+--- predict vs latent:
+{"pas_ssim": 0.912, "pas_psnr": 35.86, "pas_mse": 0.000225, "pas_snr": 2072000.0, "pas_pcc": 0.978, "pas_spc": 0.657, "pas_gds": 0.568}
+
+## DDRM t*=27 (test split, new uncond prior val 0.00589@e117)
+--- predict vs latent:
+{"pas_ssim": 0.895, "pas_psnr": 34.74, "pas_mse": 0.0003, "pas_snr": 459000.0, "pas_pcc": 0.972, "pas_spc": 0.556, "pas_gds": 0.566}
+"""
+JAX_VALIDATION = "The flagship (150 epochs,\nval 0.00498 best at epoch 134/150 — converged).\n"
+
+
+def _summary(u, seed, scores, best_val, best_epoch):
+    rows = ("ddrm",) if u else ("t29", "k1")
+    train = {"seed": seed, "best_val": best_val, "best_epoch": best_epoch}
+    if u:  # the -u 1 verdict reads the best over epochs 1-145, as JAX's run stopped
+        train |= {"best_val": 0.0, "best_epoch": 150, "best_val_epochs_1_145": best_val,
+                  "best_epoch_epochs_1_145": best_epoch}
+    return {"protocol": {"u": u}, "train": train} | {
+        row: {"scores": {"predict_vs_latent": dict(zip(METRICS, scores[row]))}} for row in rows}
+
+
+def test_spread_reads_jax_rows_and_judges_each_metric(tmp_path, capsys):
+    tables, validation = tmp_path / "tables.txt", tmp_path / "VALIDATION.md"
+    tables.write_text(JAX_TABLES)
+    validation.write_text(JAX_VALIDATION)
+    jax = tool.jax_rows(str(tables), str(validation))
+    assert jax["t29"]["pas_ssim"] == 0.86 and jax["k1"]["pas_spc"] == 0.657
+    assert jax["ddrm"]["pas_psnr"] == 34.74
+    assert jax["best_val_u0"] == {"best_val": 0.00498, "best_epoch": 134}
+    assert jax["best_val_u1"] == {"best_val": 0.00589, "best_epoch": 117}
+    # -u 0, three seeds: SSIM 0.85, 0.87, 0.89 (mean 0.87, sd 0.02) puts
+    # JAX's 0.86 inside; SPC 0.60, 0.62, 0.64 puts JAX's 0.5 outside, 6.5 sd off
+    t29 = [[s, 34.5 + d, 0.0003, 1.75e6, 0.97, sp, 0.56] for s, sp, d in
+           ((0.85, 0.60, 0.1), (0.87, 0.62, 0.2), (0.89, 0.64, 0.3))]
+    # K=1: SSIM 0.90, 0.91, 0.9105 puts JAX's 0.912 outside the range yet
+    # within 2 sd of the mean (0.9068, sd 0.00578): within the spread
+    k1 = [[s, 35.86, 0.000225, 2.072e6, 0.978, 0.657, 0.568] for s in (0.90, 0.91, 0.9105)]
+    paths = []
+    for seed in range(3):
+        p = tmp_path / f"u0_{seed}.json"
+        p.write_text(json.dumps(_summary(0, seed, {"t29": t29[seed], "k1": k1[seed]},
+                                         0.0051 + 0.0001 * seed, 140 + seed)))
+        paths.append(str(p))
+    for seed, psnr in ((0, 35.45), (1, 34.5)):
+        p = tmp_path / f"u1_{seed}.json"
+        p.write_text(json.dumps(_summary(1, seed, {"ddrm": [0.9, psnr, 0.0003, 4.6e5, 0.97, 0.56,
+                                                            0.566]}, 0.006, 145)))
+        paths.append(str(p))
+    table = tool.spread(paths, str(tables), str(validation))
+    assert set(table) == {"t29", "k1", "ddrm", "best_val_u0", "best_val_u1"}
+    assert table["t29"]["seeds"] == [0, 1, 2] and table["ddrm"]["seeds"] == [0, 1]
+    ssim = table["t29"]["pas_ssim"]
+    assert ssim["n"] == 3 and ssim["mean"] == pytest.approx(0.87)
+    assert ssim["sd"] == pytest.approx(0.02) and (ssim["min"], ssim["max"]) == (0.85, 0.89)
+    assert ssim["jax"] == 0.86 and ssim["verdict"] == "within the port's seed spread"
+    spc = table["t29"]["pas_spc"]
+    assert spc["gap"] == pytest.approx(-0.12) and spc["verdict"] == "systematic"
+    k1_ssim = table["k1"]["pas_ssim"]
+    assert not k1_ssim["min"] <= k1_ssim["jax"] <= k1_ssim["max"]
+    assert k1_ssim["verdict"] == "within the port's seed spread"
+    # every seed equal to JAX's: sd 0, JAX inside the range
+    assert table["k1"]["pas_spc"]["verdict"] == "within the port's seed spread"
+    psnr = table["ddrm"]["pas_psnr"]
+    assert psnr["mean"] == pytest.approx(34.975) and psnr["verdict"] == "within the port's seed spread"
+    val = table["best_val_u0"]["best_val"]
+    assert val["mean"] == pytest.approx(0.0052) and val["verdict"] == "systematic"
+    assert table["best_val_u0"]["best_epoch"]["verdict"] == "systematic"
+    # -u 1 reads the best of epochs 1-145: 0.006 at 145 on both seeds (sd 0)
+    assert table["best_val_u1"]["best_val"]["mean"] == pytest.approx(0.006)
+    assert table["best_val_u1"]["best_epoch"]["verdict"] == "systematic"
+    tool.print_spread(table)
+    out = capsys.readouterr().out.splitlines()
+    assert "| pas_spc | 0.62 | 0.02 | 0.6 - 0.64 | 0.5 | systematic |" in out
+    assert json.loads(out[-1]) == json.loads(json.dumps(table))
+
+
+def test_spread_reads_the_repository_files(capsys):
+    """--spread on the kept summaries against the artifact's own rows: one
+    table a row, JAX's values as the artifact prints them."""
+    import glob
+    import os
+
+    paths = sorted(glob.glob(os.path.join(tool.ROOT, "artifacts", "torch_fullscale_seeds",
+                                          "*.json")))
+    tool.main(["--spread", *paths])
+    table = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert {"t29", "k1", "ddrm", "best_val_u0", "best_val_u1"} <= set(table)
+    assert table["k1"]["pas_spc"]["jax"] == pytest.approx(0.6572632386112849)
+    assert table["ddrm"]["pas_psnr"]["jax"] == pytest.approx(34.74482002796205)
+    assert table["best_val_u0"]["best_val"]["jax"] == 0.00498
+    assert table["t29"]["seeds"][:2] == [0, 1] and table["ddrm"]["seeds"][0] == 0

@@ -31,11 +31,11 @@ def test_port_imports_without_jax():
         "import tools.torch_convert_checkpoint, tools.torch_export_checkpoint\n"
         "import tools.torch_make_fullscale_fixture, tools.torch_latent_target\n"
         "import tools.torch_fullscale_quality, distill_torch\n"
-        "import tools.torch_serve_concurrency_smoke\n"
+        "import tools.torch_serve_concurrency_smoke, tools.torch_card_trajectory\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'flax', 'optax', 'hicdiff_tpu', 'h5py', 'msgpack', 'sklearn'))\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 50, names\n"
+        "assert len(names) >= 53, names\n"
         "print(len(names))\n"
     )
     proc = subprocess.run(
@@ -54,14 +54,14 @@ def _port_sources():
     return sorted({p for pat in pats for p in glob.glob(os.path.join(ROOT, pat), recursive=True)})
 
 
-def test_port_imports_h5py_nowhere():
-    """No port source imports h5py, at module level or inside a function:
-    the port reads and writes .mcool files through its own
-    `data/hdf5.py`, also where h5py is installed."""
+def _imports_of(roots):
+    """file:line of every import, at module level or inside a function, of
+    a module under one of `roots` in the port's sources."""
     import ast
 
     files = _port_sources()
-    assert len(files) >= 60, files
+    assert len(files) >= 74, files
+    assert os.path.join(ROOT, "tools", "torch_card_trajectory.py") in files
     bad = []
     for path in files:
         with open(path) as f:
@@ -73,5 +73,21 @@ def test_port_imports_h5py_nowhere():
                     node.func, "id", "")) in ("import_module", "__import__"):
                 names = [a.value for a in node.args if isinstance(a, ast.Constant)]
             bad += [f"{os.path.relpath(path, ROOT)}:{node.lineno}" for n in names
-                    if str(n).split(".")[0] == "h5py"]
+                    if str(n).split(".")[0] in roots]
+    return bad
+
+
+def test_port_imports_h5py_nowhere():
+    """No port source imports h5py, at module level or inside a function:
+    the port reads and writes .mcool files through its own
+    `data/hdf5.py`, also where h5py is installed."""
+    bad = _imports_of({"h5py"})
+    assert not bad, bad
+
+
+def test_port_imports_jax_nowhere():
+    """No port source imports JAX, flax, optax or the JAX package, at
+    module level or inside a function, so no path that the import test
+    does not reach can need them either."""
+    bad = _imports_of({"jax", "jaxlib", "flax", "optax", "hicdiff_tpu"})
     assert not bad, bad

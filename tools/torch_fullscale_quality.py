@@ -33,6 +33,15 @@ every score, beside the card's name and power limit. Run it on the card:
 `--fp32` trains and samples in fp32; `--train-only` stops after training
 (an epoch-time measurement); `--bins`, `--blocks`, `--features` and
 `--device cpu` shrink it for a check on the host.
+
+`--spread SUMMARY.json ...` trains nothing: it reads the summaries of runs
+at several train seeds and prints, for each protocol's rows (`-u 0`: t*=29
+and K=1; `-u 1`: DDRM) and each of the seven metrics against the latent,
+and for the best val and its epoch, the port's mean, sample sd and range
+beside JAX's value (artifacts/r5_fullscale_tables.txt; the best vals from
+VALIDATION.md and the DDRM table's header) and the verdict: a gap is
+systematic when JAX's value lies outside the port's range and more than
+2 sample sd from the port's mean, else within the port's seed spread.
 """
 import argparse
 import json
@@ -62,6 +71,10 @@ SIGMA, PERCENTILE, TIMESTEP = 0.1, 99.99, 1000
 # the JAX queue's per-mode flags (tools/round5_eval_queue.sh:40-66)
 PROTOCOL = {0: dict(schedule="sigmoid", chro="all"), 1: dict(schedule="linear", chro="test")}
 JAX_STOP_EPOCH = 145  # JAX's -u 1 run stopped there, on its epoch-117 best (VALIDATION.md)
+METRICS = ("pas_ssim", "pas_psnr", "pas_mse", "pas_snr", "pas_pcc", "pas_spc", "pas_gds")
+# the JAX tables' section of each row (artifacts/r5_fullscale_tables.txt)
+SPREAD_ROWS = {"t29": "sigma=0.1 truncated t*=29", "k1": "sigma=0.1 DDIM K=1",
+               "ddrm": "DDRM t*=27"}
 ROWS = [("predict", "latent.npy"), ("predict", "target.npy"), ("noisy", "latent.npy"),
         ("noisy", "target.npy"), ("target", "latent.npy")]
 
@@ -75,6 +88,76 @@ def card_name_and_limit() -> str:
         return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "no nvidia-smi"
     except (OSError, IndexError, subprocess.TimeoutExpired):
         return "no nvidia-smi"
+
+
+def jax_rows(tables: str, validation: str) -> dict:
+    """JAX's full-scale values: each row's predict-vs-latent scores
+    (tables), and each protocol's best val and epoch."""
+    text = open(tables).read()
+    out = {}
+    for row, header in SPREAD_ROWS.items():
+        section = text.split(f"## {header}", 1)[1].split("\n## ", 1)[0]
+        line = section.split("--- predict vs latent:\n", 1)[1].splitlines()[0]
+        out[row] = {m: json.loads(line)[m] for m in METRICS}
+    val, epoch = re.search(r"val ([\d.]+)@e(\d+)", text.split(f"## {SPREAD_ROWS['ddrm']}")[1]
+                           .splitlines()[0]).groups()
+    out["best_val_u1"] = {"best_val": float(val), "best_epoch": int(epoch)}
+    val, epoch = re.search(r"val ([\d.]+) best at epoch (\d+)/", open(validation).read()).groups()
+    out["best_val_u0"] = {"best_val": float(val), "best_epoch": int(epoch)}
+    return out
+
+
+def verdict(values, jax_value) -> dict:
+    """The port's mean, sample sd and range over seeds, and whether JAX's
+    value lies outside the range and over 2 sd from the mean."""
+    v = np.asarray(values, np.float64)
+    mean, sd = float(v.mean()), float(v.std(ddof=1)) if len(v) > 1 else float("nan")
+    if len(v) < 2:
+        said = "one seed: no spread"
+    elif not v.min() <= jax_value <= v.max() and abs(jax_value - mean) > 2 * sd:
+        said = "systematic"
+    else:
+        said = "within the port's seed spread"
+    return {"n": len(v), "mean": mean, "sd": sd, "min": float(v.min()), "max": float(v.max()),
+            "jax": jax_value, "gap": jax_value - mean, "verdict": said}
+
+
+def spread(paths, tables: str, validation: str) -> dict:
+    """The verdict of every metric of every row over the summaries."""
+    runs = [json.load(open(p)) for p in paths]
+    jax = jax_rows(tables, validation)
+    out = {}
+    for u, rows in ((0, ("t29", "k1")), (1, ("ddrm",))):
+        mine = sorted((r for r in runs if r["protocol"]["u"] == u),
+                      key=lambda r: r["train"]["seed"])
+        if not mine:
+            continue
+        seeds = [r["train"]["seed"] for r in mine]
+        for row in rows:
+            out[row] = {"seeds": seeds} | {
+                m: verdict([r[row]["scores"]["predict_vs_latent"][m] for r in mine], jax[row][m])
+                for m in METRICS}
+        # JAX's -u 1 run stopped at epoch JAX_STOP_EPOCH, so the port's best
+        # over the same epochs
+        suffix = f"_epochs_1_{JAX_STOP_EPOCH}" if u else ""
+        want = jax[f"best_val_u{u}"]
+        out[f"best_val_u{u}"] = {"seeds": seeds} | {
+            k: verdict([r["train"][k + suffix] for r in mine], want[k])
+            for k in ("best_val", "best_epoch")}
+    return out
+
+
+def print_spread(table: dict) -> None:
+    for row, cols in table.items():
+        print(f"| {row} (seeds {', '.join(map(str, cols['seeds']))}) | port mean | sd | "
+              "range | JAX | verdict |")
+        print("| --- | --- | --- | --- | --- | --- |")
+        for k, v in cols.items():
+            if k != "seeds":
+                print(f"| {k} | {v['mean']:.6g} | {v['sd']:.3g} | {v['min']:.6g} - "
+                      f"{v['max']:.6g} | {v['jax']:.6g} | {v['verdict']} |")
+        print()
+    print(json.dumps(table))
 
 
 def _percentiles(a, qs=(50, 90, 99)):
@@ -208,7 +291,13 @@ def main(argv=None):
     ap.add_argument("--blocks", type=int, default=32)
     ap.add_argument("--features", type=int, default=256)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--spread", nargs="+", metavar="SUMMARY",
+                    help="print the seed spread of these summaries against JAX's rows")
     args = ap.parse_args(argv)
+    if args.spread:
+        return print_spread(spread(args.spread, os.path.join(ROOT, "artifacts",
+                                                             "r5_fullscale_tables.txt"),
+                                   os.path.join(ROOT, "VALIDATION.md")))
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         sys.exit("no CUDA device; pass --device cpu for a check on the host")
