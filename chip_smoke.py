@@ -103,7 +103,9 @@ block. `train_bf16` and
 step split, peak memory); `train_step_vs_plain` and
 `zoo_step_vs_plain` in bf16 hold two steps of base, sr3 and att card against
 CPU (losses within 1e-2 relative; each gradient no farther from the CPU's
-bf16 gradient than that lies from the CPU's fp32 one); `pretrain_zoo` runs
+bf16 gradient, or from its fp32 one, than those two lie from each other,
+and all gradients together no farther from the CPU's bf16 ones than
+those lie from the fp32 ones); `pretrain_zoo` runs
 sr3, att and unet with --bf16; `zoo_forward` holds bf16 hicedrn_att to the
 CPU; and the -u 0 and -u 1 CLI phases repeat their default run with --bf16.
 
@@ -1558,10 +1560,16 @@ def train_step_vs_plain(dev, card, name="hicedrn", mode="cond", phase_name="trai
     it read. `name` is a hicedrn backbone of the registry, `mode` the
     engine's. bf16: both sides compute in bf16; the CPU also takes the
     second step's gradient in fp32 at the CPU's weights after its first
-    step, and each gradient of the card's second step must lie no farther
-    (L2) from the CPU's bf16 gradient than that lies from the fp32 one; the
-    losses within 1e-2 relative. The updates are reported, not held: a bf16
-    gradient's sign flips where it is small."""
+    step. Each gradient of the card's second step must lie no farther (L2)
+    from the CPU's bf16 gradient, or no farther from the fp32 one, than
+    those two lie from each other (tests/test_torch_bf16.py's
+    `assert_bf16_bar`): the card and the twin round at the same points, so
+    on a leaf bf16 barely rounds (a bias gradient summed in fp32) both
+    distances are sum-order noise and either may win. Over all gradients
+    concatenated the card must lie no farther from the CPU's bf16 gradient
+    than that lies from the fp32 one. A kernel fault lies far from both and
+    fails both. The losses within 1e-2 relative. The updates are reported,
+    not held: a bf16 gradient's sign flips where it is small."""
     import copy
 
     from hicdiff_tpu_torch.diffusion.gaussian import GaussianDiffusion
@@ -1650,15 +1658,22 @@ def train_step_vs_plain(dev, card, name="hicedrn", mode="cond", phase_name="trai
     check(max(loss_rel) <= loss_tol, f"step losses: card {losses['card']}, cpu {losses['cpu']}")
     extra = {}
     if bf16:
-        ratio = {k: d[0] / d[1] for k, d in dists.items()}
-        far = max(ratio, key=ratio.get)
-        check(ratio[far] <= 1, f"grad {far}: card - cpu bf16 {dists[far][0]} > "
-                               f"cpu bf16 - cpu fp32 {dists[far][1]}")
+        ratio = {k: d[0] / d[1] for k, d in dists.items()}  # card to twin, of the gap
+        bar = {k: min(d[0], d[2]) / d[1] for k, d in dists.items()}
+        far = max(bar, key=bar.get)
+        check(bar[far] <= 1, f"grad {far}: card - cpu bf16 {dists[far][0]} and card - cpu "
+                             f"fp32 {dists[far][2]} > cpu bf16 - cpu fp32 {dists[far][1]}")
+        tree = [float(np.sqrt(sum(d[i] ** 2 for d in dists.values()))) for i in range(3)]
+        check(tree[0] <= tree[1], f"all gradients: card - cpu bf16 {tree[0]} > "
+                                  f"cpu bf16 - cpu fp32 {tree[1]}")
         extra = dict(grad_l2_worst=far, grad_l2_worst_card_vs_cpu_bf16=dists[far][0],
                      grad_l2_worst_cpu_bf16_vs_fp32=dists[far][1],
                      grad_l2_worst_card_vs_cpu_fp32=dists[far][2],
-                     grad_l2_ratio_max=ratio[far],
+                     grad_l2_bar_max=bar[far],
+                     grad_l2_ratio_max=max(ratio.values()),
+                     grad_l2_ratio_worst=max(ratio, key=ratio.get),
                      grad_l2_ratio_median=float(np.median(list(ratio.values()))),
+                     grad_l2_tree=tree, grad_l2_tree_ratio=tree[0] / tree[1],
                      grad_l2_distances={k: [float(f"{v:.4g}") for v in d]
                                         for k, d in dists.items()})
     else:

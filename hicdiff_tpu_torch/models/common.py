@@ -31,8 +31,8 @@ from torch import nn
 __all__ = [
     "BatchNorm", "ChannelLayerNorm", "frozen_batch_stats", "init_layers",
     "LearnedSinusoidalPosEmb", "NoiseLevelMLP", "ParamCache", "SR3PositionalEncoding",
-    "SinusoidalPosEmb", "TimeMLP", "conv_nhwc", "init_torch_default", "layer_norm_channels",
-    "linear",
+    "SinusoidalPosEmb", "TimeMLP", "conv_nhwc", "dense", "init_torch_default",
+    "layer_norm_channels", "linear",
 ]
 
 
@@ -40,17 +40,33 @@ def conv_nhwc(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor
               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """SAME conv of an NHWC tensor with an OIHW weight (odd kernel), in
     `dtype` (None: x's). The NCHW view of NHWC memory is channels_last, so
-    no copy is made on the way in or out."""
+    no copy is made on the way in or out.
+
+    The bias is added to the conv's output in `dtype`, as flax's Conv adds
+    it: in bf16 the conv is rounded, then its sum with the bias. cuDNN adds
+    it so too; PyTorch's CPU conv would fold it into the fp32 sum and round
+    once."""
     dt = dtype or x.dtype
-    y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), weight.to(dt),
-                 None if bias is None else bias.to(dt), padding=weight.shape[-1] // 2)
+    y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), weight.to(dt), None,
+                 padding=weight.shape[-1] // 2)
+    if bias is not None:
+        y = y.add_(bias.to(dt)[:, None, None])
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """x @ weight.T + bias in x's dtype. In bf16 the product is rounded
+    before the bias is added, as flax's Dense adds it (PyTorch's call with
+    the bias rounds once, on the CPU and through cuBLAS's epilogue)."""
+    if x.dtype == torch.bfloat16:
+        return F.linear(x, weight) + bias
+    return F.linear(x, weight, bias)
+
+
 def linear(x: torch.Tensor, layer: nn.Linear, dtype: Optional[torch.dtype] = None):
-    """`layer` applied in `dtype` (None: x's)."""
+    """`layer` applied in `dtype` (None: x's), through `dense`."""
     dt = dtype or x.dtype
-    return F.linear(x.to(dt), layer.weight.to(dt), layer.bias.to(dt))
+    return dense(x.to(dt), layer.weight.to(dt), layer.bias.to(dt))
 
 
 class ParamCache:

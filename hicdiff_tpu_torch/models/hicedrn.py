@@ -41,7 +41,9 @@ both). The sr3 block is the same kernel with scale = 0 and
 shift = Dense(t_emb): conv * (0 + 1) is exact.
 The head, body_tail and tail convs, the attention and the small GEMMs are
 `F.conv2d` / `F.linear` / `torch.matmul`, as the JAX package leaves them to
-XLA.
+XLA. A conv's or a Dense's bias is added after the product, in the compute
+dtype, as flax adds it (`conv_nhwc`, `dense`): in bf16 the product rounds
+first, on either device.
 """
 from __future__ import annotations
 
@@ -63,6 +65,7 @@ from hicdiff_tpu_torch.models.common import (
     ParamCache,
     TimeMLP,
     conv_nhwc,
+    dense,
     init_torch_default,
 )
 
@@ -141,7 +144,7 @@ class HicedrnResBlock(_SharedConvBlock):
         return self.mlp[1]
 
     def _scale_shift(self, t_act, lin_w, lin_b):
-        return F.linear(t_act, lin_w, lin_b).chunk(2, dim=-1)
+        return dense(t_act, lin_w, lin_b).chunk(2, dim=-1)
 
 
 class SR3ResBlock(_SharedConvBlock):
@@ -159,7 +162,7 @@ class SR3ResBlock(_SharedConvBlock):
         return self.noise_func.noise_func[0]
 
     def _scale_shift(self, t_emb, lin_w, lin_b):
-        shift = F.linear(t_emb, lin_w, lin_b)
+        shift = dense(t_emb, lin_w, lin_b)
         return torch.zeros_like(shift), shift
 
 

@@ -27,6 +27,7 @@ from hicdiff_tpu_torch.kernels.sample_step import (
     fused_posterior_step,
     fused_posterior_step_reference,
 )
+from hicdiff_tpu_torch.models.common import dense
 from hicdiff_tpu_torch.models.hicedrn import HicedrnDiff, HicedrnResBlock
 
 pytestmark = pytest.mark.cuda
@@ -168,7 +169,7 @@ def _cached_vs_public(device, dtype):
     with torch.no_grad():
         got = block(x, t_act)
         lin, conv = block.mlp[1], block.conv["proj"]
-        scale, shift = F.linear(t_act, lin.weight.to(dtype), lin.bias.to(dtype)).chunk(2, -1)
+        scale, shift = dense(t_act, lin.weight.to(dtype), lin.bias.to(dtype)).chunk(2, -1)
         kernel = conv.weight.permute(2, 3, 1, 0).to(dtype)
         want = fused_resblock(x, kernel, conv.bias.to(dtype), scale, shift)
     torch.cuda.synchronize()

@@ -184,3 +184,6 @@ def test_spread_reads_the_repository_files(capsys):
     assert table["ddrm"]["pas_psnr"]["jax"] == pytest.approx(34.74482002796205)
     assert table["best_val_u0"]["best_val"]["jax"] == 0.00498
     assert table["t29"]["seeds"][:2] == [0, 1] and table["ddrm"]["seeds"][0] == 0
+    # the -u 1 runs cut at 117 epochs stand in rows of their own
+    assert table["ddrm"]["seeds"] == table["ddrm_e117"]["seeds"] == [0, 1, 2]
+    assert table["best_val_u1_e117"]["best_val"]["jax"] == table["best_val_u1"]["best_val"]["jax"]

@@ -19,7 +19,7 @@ from hicdiff_tpu.models.hicedrn import SR3ResBlock as JaxSR3ResBlock
 from hicdiff_tpu.models.zoo import DIFFUSION_BACKBONES as JAX_BACKBONES
 from hicdiff_tpu_torch.convert import params_from_jax, params_to_jax
 from hicdiff_tpu_torch.kernels import resblock as resblock_mod
-from hicdiff_tpu_torch.models.common import SR3PositionalEncoding
+from hicdiff_tpu_torch.models.common import SR3PositionalEncoding, dense
 from hicdiff_tpu_torch.models.hicedrn import HicedrnDiff
 from hicdiff_tpu_torch.models.unet import Unet, UnetResnetBlock, WSConv2d, downsample_s2d
 from hicdiff_tpu_torch.models.zoo import DIFFUSION_BACKBONES
@@ -258,7 +258,7 @@ def test_bf16_att_blocks_carry_the_fp32_stream():
     block, (x, y) = port.body[2], seen[2]
     lin_w, lin_b, weight, bias = block._compute_weights(torch.bfloat16)
     t_in = torch.nn.functional.silu(port.time_mlp(args[1]).to(torch.bfloat16))
-    scale, shift = torch.nn.functional.linear(t_in, lin_w, lin_b).chunk(2, dim=-1)
+    scale, shift = dense(t_in, lin_w, lin_b).chunk(2, dim=-1)
     want_y = resblock_mod.fused_resblock_reference(
         x.detach().to(torch.bfloat16), block.conv["proj"].weight.detach().permute(2, 3, 1, 0).to(
             torch.bfloat16), bias, scale, shift, residual=x.detach())

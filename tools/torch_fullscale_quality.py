@@ -36,7 +36,8 @@ every score, beside the card's name and power limit. Run it on the card:
 
 `--spread SUMMARY.json ...` trains nothing: it reads the summaries of runs
 at several train seeds and prints, for each protocol's rows (`-u 0`: t*=29
-and K=1; `-u 1`: DDRM) and each of the seven metrics against the latent,
+and K=1; `-u 1`: DDRM; runs of another `--epochs` in rows of their own)
+and each of the seven metrics against the latent,
 and for the best val and its epoch, the port's mean, sample sd and range
 beside JAX's value (artifacts/r5_fullscale_tables.txt; the best vals from
 VALIDATION.md and the DDRM table's header) and the verdict: a gap is
@@ -123,27 +124,32 @@ def verdict(values, jax_value) -> dict:
 
 
 def spread(paths, tables: str, validation: str) -> dict:
-    """The verdict of every metric of every row over the summaries."""
+    """The verdict of every metric of every row over the summaries. Runs
+    of another length than the protocol's 150 epochs form rows of their
+    own, named with `_e{epochs}`."""
     runs = [json.load(open(p)) for p in paths]
     jax = jax_rows(tables, validation)
     out = {}
     for u, rows in ((0, ("t29", "k1")), (1, ("ddrm",))):
-        mine = sorted((r for r in runs if r["protocol"]["u"] == u),
-                      key=lambda r: r["train"]["seed"])
-        if not mine:
-            continue
-        seeds = [r["train"]["seed"] for r in mine]
-        for row in rows:
-            out[row] = {"seeds": seeds} | {
-                m: verdict([r[row]["scores"]["predict_vs_latent"][m] for r in mine], jax[row][m])
-                for m in METRICS}
-        # JAX's -u 1 run stopped at epoch JAX_STOP_EPOCH, so the port's best
-        # over the same epochs
-        suffix = f"_epochs_1_{JAX_STOP_EPOCH}" if u else ""
-        want = jax[f"best_val_u{u}"]
-        out[f"best_val_u{u}"] = {"seeds": seeds} | {
-            k: verdict([r["train"][k + suffix] for r in mine], want[k])
-            for k in ("best_val", "best_epoch")}
+        for epochs in sorted({r["protocol"].get("e", 150) for r in runs
+                              if r["protocol"]["u"] == u}):
+            mine = sorted((r for r in runs if r["protocol"]["u"] == u
+                           and r["protocol"].get("e", 150) == epochs),
+                          key=lambda r: r["train"]["seed"])
+            seeds = [r["train"]["seed"] for r in mine]
+            tag = "" if epochs == 150 else f"_e{epochs}"
+            for row in rows:
+                out[row + tag] = {"seeds": seeds} | {
+                    m: verdict([r[row]["scores"]["predict_vs_latent"][m] for r in mine],
+                               jax[row][m])
+                    for m in METRICS}
+            # JAX's -u 1 run stopped at epoch JAX_STOP_EPOCH, so the port's
+            # best over the same epochs
+            suffix = f"_epochs_1_{JAX_STOP_EPOCH}" if u else ""
+            want = jax[f"best_val_u{u}"]
+            out[f"best_val_u{u}{tag}"] = {"seeds": seeds} | {
+                k: verdict([r["train"][k + suffix] for r in mine], want[k])
+                for k in ("best_val", "best_epoch")}
     return out
 
 
