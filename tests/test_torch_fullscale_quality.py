@@ -2,17 +2,25 @@
 protocol (the unconditional prior at the linear schedule, DDRM over the test
 split at t*=27) and the `-u 0` protocol at a second train seed, each through
 the whole tool (fixture, training, inference, latent, scores) at 64 bins a
-chromosome, one block of 16 features, one epoch."""
+chromosome, one block of 16 features, one epoch; a run in two pieces against
+the uninterrupted run, the kept checkpoints, and `--spread`'s rows."""
+import hashlib
 import json
 import math
+import os
 
+import numpy as np
 import pytest
+import torch
 
+from hicdiff_tpu_torch.convert import params_from_jax
+from hicdiff_tpu_torch.train import logging as logging_mod
 from hicdiff_tpu_torch.train import trainer as trainer_mod
+from hicdiff_tpu_torch.train.checkpoint import load_checkpoint
 from tools import torch_fullscale_quality as tool
 
-TINY = ["--bins", "64", "--blocks", "1", "--features", "16", "--epochs", "1",
-        "--device", "cpu"]
+SIZE = ["--bins", "64", "--blocks", "1", "--features", "16", "--device", "cpu"]
+TINY = [*SIZE, "--epochs", "1"]
 METRICS = ("pas_ssim", "pas_psnr", "pas_mse", "pas_snr", "pas_pcc", "pas_spc", "pas_gds")
 
 
@@ -187,3 +195,164 @@ def test_spread_reads_the_repository_files(capsys):
     # the -u 1 runs cut at 117 epochs stand in rows of their own
     assert table["ddrm"]["seeds"] == table["ddrm_e117"]["seeds"] == [0, 1, 2]
     assert table["best_val_u1_e117"]["best_val"]["jax"] == table["best_val_u1"]["best_val"]["jax"]
+    # the -u 1 sweep: its best checkpoint apart from the seed rows, and its
+    # kept checkpoints of epochs 50-150
+    assert table["ddrm_sweep"]["seeds"][0] == 0
+    swept = table["ddrm_sweep_kept_seed0"]
+    assert swept["epochs"] == list(range(50, 160, 10))
+    assert swept["pas_psnr"]["min"] <= swept["pas_psnr"]["median"] <= swept["pas_psnr"]["max"]
+
+
+def _tool(root, out, *flags):
+    tool.main([*SIZE, *flags, "--root", str(root), "--out", str(out)])
+    return json.loads(out.read_text())
+
+
+def _bestg(root) -> dict:
+    (path,) = (root / "Model_Weights").glob("bestg_*.msgpack")
+    return params_from_jax(load_checkpoint(str(path), only={"params"})["params"])
+
+
+def test_pieces_add_up_to_the_uninterrupted_run(tmp_path, monkeypatch):
+    """Two pieces of one epoch each against one call of two epochs: the
+    same batches in the same order, the same losses at each epoch, and the
+    same best checkpoint. At train seed 2 the val rises at epoch 2, so the
+    second piece writes a worse bestg and the tool must put back the
+    first piece's."""
+    batches = []
+    step = trainer_mod.Trainer.train_step
+
+    def spy(self, data, target, **kw):
+        batches.append(hashlib.sha1(np.ascontiguousarray(target).tobytes()).hexdigest())
+        return step(self, data, target, **kw)
+
+    monkeypatch.setattr(trainer_mod.Trainer, "train_step", spy)
+    flags = ("--train-seed", "2", "--epochs", "2", "--train-only")
+    whole = _tool(tmp_path / "whole", tmp_path / "whole.json", *flags)
+    whole_batches, batches[:] = list(batches), []
+    first = _tool(tmp_path / "pieces", tmp_path / "p1.json", *flags, "--stop-after", "1")
+    assert [e["epoch"] for e in first["train"]["epochs"]] == [1]
+    last = _tool(tmp_path / "pieces", tmp_path / "p2.json", *flags, "--continue")
+    assert batches == whole_batches and len(set(whole_batches)) == 2
+    assert [e["epoch"] for e in last["train"]["epochs"]] == [1, 2]
+    for key in ("train", "val"):
+        assert [e[key] for e in last["train"]["epochs"]] == [e[key] for e in
+                                                             whole["train"]["epochs"]]
+    assert whole["train"]["best_epoch"] == last["train"]["best_epoch"] == 1
+    assert last["train"]["best_val"] == whole["train"]["best_val"]
+    assert [p["epochs"] for p in last["train"]["pieces"]] == [[1, 1], [2, 2]]
+    want, got = _bestg(tmp_path / "whole"), _bestg(tmp_path / "pieces")
+    assert set(got) == set(want)
+    for name in want:
+        assert torch.equal(got[name], want[name]), name
+    # a piece of another protocol does not continue
+    with pytest.raises(SystemExit):
+        _tool(tmp_path / "pieces", tmp_path / "p3.json", "--epochs", "2", "--continue")
+
+
+@pytest.mark.parametrize("u", [0, 1])
+def test_kept_checkpoints_are_scored_and_deleted(tmp_path, monkeypatch, u):
+    """--keep-every 1 over two epochs: two kept checkpoints, each the
+    trainer's params at its epoch and the step it reached (256 bins a
+    chromosome: three batches an epoch), scored by the protocol's own
+    inference (K=1 or DDRM) without the EMA, then deleted."""
+    live, trainers = {}, []
+    fit, log = trainer_mod.Trainer.fit, logging_mod.MetricLogger.log
+
+    def fit_spy(self, *args, **kw):
+        trainers.append(self)
+        return fit(self, *args, **kw)
+
+    def log_spy(self, record):  # the params as the epoch ends
+        if "Epoch" in record:
+            live[record["Epoch"]] = {n: p.detach().clone()
+                                     for n, p in trainers[-1].model.named_parameters()}
+        return log(self, record)
+
+    scored, infer = {}, tool.inference_torch.Inference
+
+    def infer_spy(**kw):
+        if kw["weights"]:
+            ck = load_checkpoint(kw["weights"], only={"params", "step"})
+            scored[kw["out_tag"]] = (params_from_jax(ck["params"]), ck["step"], kw)
+        return infer(**kw)
+
+    monkeypatch.setattr(trainer_mod.Trainer, "fit", fit_spy)
+    monkeypatch.setattr(logging_mod.MetricLogger, "log", log_spy)
+    monkeypatch.setattr(tool.inference_torch, "Inference", infer_spy)
+    s = _tool(tmp_path / "root", tmp_path / "s.json", "-u", str(u), "--epochs", "2",
+              "--keep-every", "1", "--bins", "256", "--train-only")
+    assert [k["epoch"] for k in s["kept"]] == [1, 2]
+    assert set(scored) == {"_kept1", "_kept2"}
+    per_epoch = -(-s["train"]["train_patches"] // 64)
+    assert per_epoch > 1
+    vals = [e["val"] for e in s["train"]["epochs"]]
+    for k in s["kept"]:
+        params, step, kw = scored[f"_kept{k['epoch']}"]
+        assert step == k["epoch"] * per_epoch
+        assert kw["use_ema"] is False and kw["sampling_steps"] == (None if u else 1)
+        assert kw["chro"] == ("test" if u else "all")
+        for name, p in live[k["epoch"]].items():
+            assert torch.equal(params[name], p), (k["epoch"], name)
+        assert k["val"] == vals[k["epoch"] - 1] and k["best_so_far"] == min(vals[:k["epoch"]])
+        _assert_scores(k, ["predict_vs_latent", "predict_vs_target"])
+        assert not os.path.exists(k["scores"]["latent"]["quartet_dir"])
+    assert os.listdir(tmp_path / "root" / "kept") == []
+    assert not {"ddrm", "k1", "t29"} & set(s)  # --train-only: the kept are scored all the same
+
+
+def _kept(psnrs, ssim=0.9):
+    """A kept sweep of epochs 10-150, epoch 10 first."""
+    return [{"epoch": 10 * (i + 1), "val": 0.006, "best_so_far": 0.006, "scores": {
+        "predict_vs_latent": dict(zip(METRICS, [ssim, p, 0.0003, 4.6e5, 0.97, 0.56, 0.566]))}}
+        for i, p in enumerate(psnrs)]
+
+
+@pytest.mark.parametrize("psnrs, said", [
+    # epoch 10's 34.0 is left out: from epoch 50 on, 35.3-36.1 lies above 35.24
+    ([34.0] + [35.0] * 3 + [35.3 + 0.08 * i for i in range(11)], "systematic"),
+    ([35.0] * 4 + [35.6] * 9 + [35.2, 35.9], "within the limit at epochs 140"),
+    ([35.0] * 4 + [35.6] * 5 + [34.5] + [35.6] * 5, "within one run's checkpoint spread"),
+])
+def test_spread_reads_fp32_rows_and_the_kept_sweep(tmp_path, capsys, psnrs, said):
+    tables, validation = tmp_path / "tables.txt", tmp_path / "VALIDATION.md"
+    tables.write_text(JAX_TABLES)
+    validation.write_text(JAX_VALIDATION)
+    paths = []
+
+    def put(name, summary):
+        p = tmp_path / name
+        p.write_text(json.dumps(summary))
+        paths.append(str(p))
+
+    # -u 0 bf16 seeds: K=1 SSIM 0.90-0.91 (JAX 0.912), SPC 0.60-0.66 (JAX 0.657)
+    for seed, (ssim, spc) in enumerate(((0.90, 0.60), (0.91, 0.66))):
+        row = [ssim, 35.86, 0.000225, 2.072e6, 0.978, spc, 0.568]
+        put(f"u0_{seed}.json", _summary(0, seed, {"t29": row, "k1": row}, 0.005, 140))
+    # fp32: SSIM 0.915 beyond the range on JAX's side; SPC 0.65 inside
+    fp32 = [0.915, 35.86, 0.000225, 2.072e6, 0.978, 0.65, 0.568]
+    put("u0_fp32.json", _summary(0, 0, {"t29": fp32, "k1": fp32}, 0.0049, 130) | {
+        "precision": "float32", "kept": [
+            {"epoch": e, "scores": {"predict_vs_latent": dict(zip(METRICS, [
+                0.905 + 0.001 * i, 35.8, 0.000225, 2.07e6, 0.978, 0.63, 0.57]))}}
+            for i, e in enumerate(range(10, 160, 10))]})
+    put("u1_sweep.json", _summary(1, 0, {"ddrm": [0.9, 35.5, 0.0003, 4.6e5, 0.97, 0.56,
+                                                  0.566]}, 0.006, 140) | {"kept": _kept(psnrs)})
+    table = tool.spread(paths, str(tables), str(validation))
+    assert {"k1", "k1_fp32", "t29_fp32", "k1_fp32_kept_seed0", "best_val_u0_fp32",
+            "ddrm_sweep", "ddrm_sweep_kept_seed0", "best_val_u1_sweep"} <= set(table)
+    assert "ddrm" not in table  # the sweep repeats a seed: rows of its own
+    k1 = table["k1_fp32"]
+    assert k1["seeds"] == [0] and k1["pas_ssim"]["bf16"] == "bf16 training implicated"
+    assert k1["pas_spc"]["bf16"] == "bf16 training not implicated"
+    swept = table["k1_fp32_kept_seed0"]
+    assert swept["epochs"] == list(range(50, 160, 10))
+    assert (swept["pas_ssim"]["min"], swept["pas_ssim"]["max"]) == pytest.approx((0.909, 0.919))
+    assert swept["pas_ssim"]["verdict"] == "within one run's checkpoint spread"
+    assert swept["pas_spc"]["verdict"] == "outside one run's checkpoint spread"
+    psnr = table["ddrm_sweep_kept_seed0"]["pas_psnr"]
+    assert psnr["n"] == 11 and psnr["jax"] == 34.74 and psnr["verdict"] == said
+    tool.print_spread(table)
+    out = capsys.readouterr().out
+    assert "; bf16 training implicated |" in out and f"| {said} |" in out
+    assert "| k1_fp32_kept_seed0 (seed 0), epochs 50-150 | min (epoch) |" in out
