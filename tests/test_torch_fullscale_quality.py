@@ -3,7 +3,8 @@ protocol (the unconditional prior at the linear schedule, DDRM over the test
 split at t*=27) and the `-u 0` protocol at a second train seed, each through
 the whole tool (fixture, training, inference, latent, scores) at 64 bins a
 chromosome, one block of 16 features, one epoch; a run in two pieces against
-the uninterrupted run, the kept checkpoints, and `--spread`'s rows."""
+the uninterrupted run, the kept checkpoints, a summary written as the call
+goes, and `--spread`'s rows."""
 import hashlib
 import json
 import math
@@ -201,6 +202,19 @@ def test_spread_reads_the_repository_files(capsys):
     swept = table["ddrm_sweep_kept_seed0"]
     assert swept["epochs"] == list(range(50, 160, 10))
     assert swept["pas_psnr"]["min"] <= swept["pas_psnr"]["median"] <= swept["pas_psnr"]["max"]
+    # the -u 0 sweeps: both rows of every kept checkpoint of epochs 50-150,
+    # each verdict one of the rule's
+    assert table["k1_sweep"]["seeds"] == table["t29_sweep"]["seeds"] == [0, 1]
+    for row in ("k1", "t29"):
+        for seed in (0, 1):
+            swept = table[f"{row}_sweep_kept_seed{seed}"]
+            assert swept["epochs"] == list(range(50, 160, 10))
+            for m in METRICS:
+                assert swept[m]["n"] == 11
+                assert swept[m]["min"] <= swept[m]["median"] <= swept[m]["max"]
+            assert swept["pas_ssim"]["verdict"] in (
+                "within one run's checkpoint spread", "systematic") or swept["pas_ssim"][
+                "verdict"].startswith("within the limit at epochs ")
 
 
 def _tool(root, out, *flags):
@@ -250,12 +264,30 @@ def test_pieces_add_up_to_the_uninterrupted_run(tmp_path, monkeypatch):
         _tool(tmp_path / "pieces", tmp_path / "p3.json", "--epochs", "2", "--continue")
 
 
+def _inference_spy(monkeypatch, scored: dict, fail_on: str = None):
+    """Record each kept checkpoint's Inference call by its out tag: the
+    params and step it loaded, and the call's arguments; raise on the tag
+    `fail_on`."""
+    infer = tool.inference_torch.Inference
+
+    def spy(**kw):
+        if kw["out_tag"] == fail_on:
+            raise RuntimeError(f"inference of {fail_on} failed")
+        if kw["weights"]:
+            ck = load_checkpoint(kw["weights"], only={"params", "step"})
+            scored[kw["out_tag"]] = (params_from_jax(ck["params"]), ck["step"], kw)
+        return infer(**kw)
+
+    monkeypatch.setattr(tool.inference_torch, "Inference", spy)
+
+
 @pytest.mark.parametrize("u", [0, 1])
 def test_kept_checkpoints_are_scored_and_deleted(tmp_path, monkeypatch, u):
     """--keep-every 1 over two epochs: two kept checkpoints, each the
     trainer's params at its epoch and the step it reached (256 bins a
-    chromosome: three batches an epoch), scored by the protocol's own
-    inference (K=1 or DDRM) without the EMA, then deleted."""
+    chromosome: three batches an epoch), run through the protocol's own
+    inference without the EMA (`-u 1`: DDRM; `-u 0`: K=1, and t*=29 from
+    KEPT_FROM, here epoch 2, on), scored, then deleted."""
     live, trainers = {}, []
     fit, log = trainer_mod.Trainer.fit, logging_mod.MetricLogger.log
 
@@ -269,52 +301,90 @@ def test_kept_checkpoints_are_scored_and_deleted(tmp_path, monkeypatch, u):
                                      for n, p in trainers[-1].model.named_parameters()}
         return log(self, record)
 
-    scored, infer = {}, tool.inference_torch.Inference
-
-    def infer_spy(**kw):
-        if kw["weights"]:
-            ck = load_checkpoint(kw["weights"], only={"params", "step"})
-            scored[kw["out_tag"]] = (params_from_jax(ck["params"]), ck["step"], kw)
-        return infer(**kw)
-
+    scored = {}
     monkeypatch.setattr(trainer_mod.Trainer, "fit", fit_spy)
     monkeypatch.setattr(logging_mod.MetricLogger, "log", log_spy)
-    monkeypatch.setattr(tool.inference_torch, "Inference", infer_spy)
+    monkeypatch.setattr(tool, "KEPT_FROM", 2)
+    _inference_spy(monkeypatch, scored)
     s = _tool(tmp_path / "root", tmp_path / "s.json", "-u", str(u), "--epochs", "2",
               "--keep-every", "1", "--bins", "256", "--train-only")
+    assert s["partial"] is False
     assert [k["epoch"] for k in s["kept"]] == [1, 2]
-    assert set(scored) == {"_kept1", "_kept2"}
+    # the row, its sampling steps and the output's tag of each inference run
+    runs = {1: {"ddrm": (None, "_kept1")}, 2: {"ddrm": (None, "_kept2")}} if u else {
+        1: {"k1": (1, "_kept1_k1")}, 2: {"t29": (None, "_kept2"), "k1": (1, "_kept2_k1")}}
+    assert set(scored) == {tag for r in runs.values() for _, tag in r.values()}
     per_epoch = -(-s["train"]["train_patches"] // 64)
     assert per_epoch > 1
     vals = [e["val"] for e in s["train"]["epochs"]]
     for k in s["kept"]:
-        params, step, kw = scored[f"_kept{k['epoch']}"]
-        assert step == k["epoch"] * per_epoch
-        assert kw["use_ema"] is False and kw["sampling_steps"] == (None if u else 1)
-        assert kw["chro"] == ("test" if u else "all")
-        for name, p in live[k["epoch"]].items():
-            assert torch.equal(params[name], p), (k["epoch"], name)
+        assert set(k["scores"]) == set(k["runs"]) == set(runs[k["epoch"]])
+        for row, (steps, tag) in runs[k["epoch"]].items():
+            params, step, kw = scored[tag]
+            assert step == k["epoch"] * per_epoch
+            assert kw["use_ema"] is False and kw["sampling_steps"] == steps
+            assert kw["chro"] == ("test" if u else "all")
+            for name, p in live[k["epoch"]].items():
+                assert torch.equal(params[name], p), (k["epoch"], name)
+            # -u 0's rows against the latent alone
+            _assert_scores({"scores": k["scores"][row]},
+                           ["predict_vs_latent"] + (["predict_vs_target"] if u else []))
+            assert not os.path.exists(k["scores"][row]["latent"]["quartet_dir"])
+            assert k["runs"][row]["patches"] > 0 and k["runs"][row]["score_s"] > 0
+            assert k["runs"][row]["launches"]["fused_resblock"] == 0  # the CPU's plain version
         assert k["val"] == vals[k["epoch"] - 1] and k["best_so_far"] == min(vals[:k["epoch"]])
-        _assert_scores(k, ["predict_vs_latent", "predict_vs_target"])
-        assert not os.path.exists(k["scores"]["latent"]["quartet_dir"])
     assert os.listdir(tmp_path / "root" / "kept") == []
     assert not {"ddrm", "k1", "t29"} & set(s)  # --train-only: the kept are scored all the same
 
 
+def test_a_failed_call_leaves_the_scored_checkpoints(tmp_path, monkeypatch):
+    """--out is written as the call goes: when the second kept checkpoint's
+    inference fails, the summary holds the first one's scores, marked
+    partial, and no temporary file is left beside it."""
+    scored = {}
+    _inference_spy(monkeypatch, scored, fail_on="_kept2_k1")
+    out = tmp_path / "s.json"
+    with pytest.raises(RuntimeError, match="_kept2_k1"):
+        _tool(tmp_path / "root", out, "--epochs", "2", "--keep-every", "1", "--train-only")
+    s = json.loads(out.read_text())
+    assert s["partial"] is True and [e["epoch"] for e in s["train"]["epochs"]] == [1, 2]
+    (k,) = s["kept"]
+    assert k["epoch"] == 1 and set(k["scores"]) == {"k1"}  # epoch 1 < KEPT_FROM: K=1 alone
+    _assert_scores({"scores": k["scores"]["k1"]}, ["predict_vs_latent"])
+    assert set(scored) == {"_kept1_k1"}
+    assert sorted(os.listdir(tmp_path)) == ["root", "s.json"]
+
+
 def _kept(psnrs, ssim=0.9):
-    """A kept sweep of epochs 10-150, epoch 10 first."""
+    """A kept `-u 1` sweep of epochs 10-150, epoch 10 first, in the layout
+    the committed sweeps have: DDRM's scores unnested."""
     return [{"epoch": 10 * (i + 1), "val": 0.006, "best_so_far": 0.006, "scores": {
         "predict_vs_latent": dict(zip(METRICS, [ssim, p, 0.0003, 4.6e5, 0.97, 0.56, 0.566]))}}
         for i, p in enumerate(psnrs)]
 
 
-@pytest.mark.parametrize("psnrs, said", [
+def _kept_u0(ssims):
+    """A kept `-u 0` sweep of epochs 10-150: K=1 at each, t*=29 from epoch
+    50 on, its SSIM 0.052 below K=1's (JAX's two rows lie so apart)."""
+    def row(ssim):
+        return {"predict_vs_latent": dict(zip(METRICS, [ssim, 35.8, 0.000225, 2.07e6, 0.978,
+                                                        0.63, 0.57]))}
+    return [{"epoch": e, "val": 0.005, "best_so_far": 0.005, "scores": {"k1": row(x)} | (
+        {"t29": row(x - 0.052)} if e >= 50 else {})} for e, x in zip(range(10, 160, 10), ssims)]
+
+
+# each case's DDRM PSNR (JAX 34.74, limit 0.5 dB) and `-u 0` K=1 SSIM
+# (JAX 0.912, limit 0.02) along a sweep of epochs 10-150 get one verdict
+@pytest.mark.parametrize("psnrs, ssims, said", [
     # epoch 10's 34.0 is left out: from epoch 50 on, 35.3-36.1 lies above 35.24
-    ([34.0] + [35.0] * 3 + [35.3 + 0.08 * i for i in range(11)], "systematic"),
-    ([35.0] * 4 + [35.6] * 9 + [35.2, 35.9], "within the limit at epochs 140"),
-    ([35.0] * 4 + [35.6] * 5 + [34.5] + [35.6] * 5, "within one run's checkpoint spread"),
+    ([34.0] + [35.0] * 3 + [35.3 + 0.08 * i for i in range(11)],
+     [0.95] + [0.90] * 3 + [0.85 + 0.004 * i for i in range(11)], "systematic"),
+    ([35.0] * 4 + [35.6] * 9 + [35.2, 35.9], [0.9] * 4 + [0.88] * 9 + [0.895, 0.87],
+     "within the limit at epochs 140"),
+    ([35.0] * 4 + [35.6] * 5 + [34.5] + [35.6] * 5, [0.9] * 4 + [0.905] * 5 + [0.92] + [0.9] * 5,
+     "within one run's checkpoint spread"),
 ])
-def test_spread_reads_fp32_rows_and_the_kept_sweep(tmp_path, capsys, psnrs, said):
+def test_spread_reads_fp32_rows_and_the_kept_sweep(tmp_path, capsys, psnrs, ssims, said):
     tables, validation = tmp_path / "tables.txt", tmp_path / "VALIDATION.md"
     tables.write_text(JAX_TABLES)
     validation.write_text(JAX_VALIDATION)
@@ -329,19 +399,26 @@ def test_spread_reads_fp32_rows_and_the_kept_sweep(tmp_path, capsys, psnrs, said
     for seed, (ssim, spc) in enumerate(((0.90, 0.60), (0.91, 0.66))):
         row = [ssim, 35.86, 0.000225, 2.072e6, 0.978, spc, 0.568]
         put(f"u0_{seed}.json", _summary(0, seed, {"t29": row, "k1": row}, 0.005, 140))
-    # fp32: SSIM 0.915 beyond the range on JAX's side; SPC 0.65 inside
+    # fp32: SSIM 0.915 beyond the range on JAX's side; SPC 0.65 inside;
+    # kept checkpoints scored at K=1 alone
     fp32 = [0.915, 35.86, 0.000225, 2.072e6, 0.978, 0.65, 0.568]
     put("u0_fp32.json", _summary(0, 0, {"t29": fp32, "k1": fp32}, 0.0049, 130) | {
         "precision": "float32", "kept": [
-            {"epoch": e, "scores": {"predict_vs_latent": dict(zip(METRICS, [
-                0.905 + 0.001 * i, 35.8, 0.000225, 2.07e6, 0.978, 0.63, 0.57]))}}
+            {"epoch": e, "scores": {"k1": {"predict_vs_latent": dict(zip(METRICS, [
+                0.905 + 0.001 * i, 35.8, 0.000225, 2.07e6, 0.978, 0.63, 0.57]))}}}
             for i, e in enumerate(range(10, 160, 10))]})
+    # a bf16 -u 0 sweep at seed 0, beside the seed rows
+    put("u0_sweep.json", _summary(0, 0, {"t29": fp32, "k1": fp32}, 0.005, 140) | {
+        "kept": _kept_u0(ssims)})
     put("u1_sweep.json", _summary(1, 0, {"ddrm": [0.9, 35.5, 0.0003, 4.6e5, 0.97, 0.56,
                                                   0.566]}, 0.006, 140) | {"kept": _kept(psnrs)})
     table = tool.spread(paths, str(tables), str(validation))
     assert {"k1", "k1_fp32", "t29_fp32", "k1_fp32_kept_seed0", "best_val_u0_fp32",
-            "ddrm_sweep", "ddrm_sweep_kept_seed0", "best_val_u1_sweep"} <= set(table)
+            "ddrm_sweep", "ddrm_sweep_kept_seed0", "best_val_u1_sweep", "k1_sweep", "t29_sweep",
+            "k1_sweep_kept_seed0", "t29_sweep_kept_seed0", "best_val_u0_sweep"} <= set(table)
     assert "ddrm" not in table  # the sweep repeats a seed: rows of its own
+    assert "t29_fp32_kept_seed0" not in table  # no checkpoint scored at t*=29
+    assert table["k1"]["seeds"] == [0, 1] and table["k1_sweep"]["seeds"] == [0]
     k1 = table["k1_fp32"]
     assert k1["seeds"] == [0] and k1["pas_ssim"]["bf16"] == "bf16 training implicated"
     assert k1["pas_spc"]["bf16"] == "bf16 training not implicated"
@@ -352,7 +429,15 @@ def test_spread_reads_fp32_rows_and_the_kept_sweep(tmp_path, capsys, psnrs, said
     assert swept["pas_spc"]["verdict"] == "outside one run's checkpoint spread"
     psnr = table["ddrm_sweep_kept_seed0"]["pas_psnr"]
     assert psnr["n"] == 11 and psnr["jax"] == 34.74 and psnr["verdict"] == said
+    for row, jax in (("k1", 0.912), ("t29", 0.86)):
+        kept = table[f"{row}_sweep_kept_seed0"]
+        assert kept["epochs"] == list(range(50, 160, 10))
+        ssim = kept["pas_ssim"]
+        assert ssim["n"] == 11 and ssim["jax"] == jax and ssim["verdict"] == said, row
+        for m in ("pas_spc", "pas_gds"):  # no limit: two ways
+            assert kept[m]["verdict"] == "outside one run's checkpoint spread", (row, m)
     tool.print_spread(table)
     out = capsys.readouterr().out
     assert "; bf16 training implicated |" in out and f"| {said} |" in out
     assert "| k1_fp32_kept_seed0 (seed 0), epochs 50-150 | min (epoch) |" in out
+    assert "| t29_sweep_kept_seed0 (seed 0), epochs 50-150 | min (epoch) |" in out

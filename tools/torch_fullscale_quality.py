@@ -36,10 +36,18 @@ every score, beside the card's name and power limit. Run it on the card:
 
 `--keep-every N` writes the live params of every N-th epoch as a
 checkpoint of their own (ROOT/kept) and, once the call's training is done,
-scores each by the protocol's own inference (`-u 1`: DDRM at t*=27 over the
-test split; `-u 0`: K=1 over the full cell), the prediction against the
-latent and against the realized target, then deletes it: the summary's
-`kept`, one entry an epoch with its val and the best val so far.
+runs each through the protocol's own inference (`-u 1`: DDRM at t*=27 over
+the test split; `-u 0`: K=1 over the full cell, and from epoch 50 on also
+the truncated chain at t*=29), deletes it and scores each run in a worker
+process while the card runs the next (`-u 1` against the latent and the
+realized target, `-u 0` against the latent): the summary's `kept`, one
+entry an epoch with its val, the best val so far, and each row's scores
+(`scores`) and inference wall, scoring wall and launches (`runs`).
+
+The summary (--out) is written after training, after each kept checkpoint
+is scored and at the end, each time whole (a temporary file, then a
+rename), with `"partial": true` until the last: a call cut short leaves
+every checkpoint it scored.
 
 `--stop-after E` stops after epoch E and runs no inference; `--continue`
 goes on from the piece under --root in a later process: its finalg
@@ -74,15 +82,18 @@ rows. Each fp32 value also carries whether bf16 training is implicated:
 it is when the value lies outside the bf16 seeds' range of its row, on
 the side of JAX's value (which lies outside it too); else not implicated.
 The kept checkpoints of epochs 50-150 of a run form a row of their own
-(`_kept_seed{N}`): each metric's min, median and max over them, the epochs
-of the min and the max, and whether JAX's value lies within that range
-(within one run's checkpoint spread) or not. DDRM's PSNR also gets the three-way rule: JAX's
-value within the range; every checkpoint above JAX's + 0.5 dB (PERF.md's
-limit): systematic; else within the limit at some checkpoints, which are
-named.
+for each protocol row they were scored in (`{ddrm,t29,k1}..._kept_seed{N}`):
+each metric's min, median and max over them, the epochs of the min and
+the max, and whether JAX's value lies within that range (within one run's
+checkpoint spread) or not. SSIM and PSNR, which have PERF.md's quality
+limits (0.02; 0.5 dB), get a three-way rule: JAX's value within the range;
+every checkpoint farther from JAX's than the limit: systematic; else within
+the limit at some checkpoints, which are named.
 """
 import argparse
+import concurrent.futures
 import json
+import multiprocessing
 import os
 import re
 import shutil
@@ -111,11 +122,13 @@ SIGMA, PERCENTILE, TIMESTEP = 0.1, 99.99, 1000
 PROTOCOL = {0: dict(schedule="sigmoid", chro="all"), 1: dict(schedule="linear", chro="test")}
 JAX_STOP_EPOCH = 145  # JAX's -u 1 run stopped there, on its epoch-117 best (VALIDATION.md)
 KEPT_FROM = 50  # the kept checkpoints' rows read epochs 50 onwards
-PSNR_LIMIT = 0.5  # dB, PERF.md's quality limit
+LIMITS = {"pas_ssim": 0.02, "pas_psnr": 0.5}  # PERF.md's quality limits (PSNR in dB)
 METRICS = ("pas_ssim", "pas_psnr", "pas_mse", "pas_snr", "pas_pcc", "pas_spc", "pas_gds")
 # the JAX tables' section of each row (artifacts/r5_fullscale_tables.txt)
 SPREAD_ROWS = {"t29": "sigma=0.1 truncated t*=29", "k1": "sigma=0.1 DDIM K=1",
                "ddrm": "DDRM t*=27"}
+# each protocol's inference runs: row, sampling steps, the output's tag
+RUNS = {0: (("t29", None, ""), ("k1", 1, "_k1")), 1: (("ddrm", None, ""),)}
 ROWS = [("predict", "latent.npy"), ("predict", "target.npy"), ("noisy", "latent.npy"),
         ("noisy", "target.npy"), ("target", "latent.npy")]
 
@@ -172,21 +185,29 @@ def implicated(value: float, bf16: dict, jax_value: float) -> str:
     return "bf16 training not implicated"
 
 
-def kept_row(kept: list, jax_row: dict, row: str) -> dict:
-    """One run's kept checkpoints of epochs KEPT_FROM onwards: each
-    metric's min, median and max, their epochs, and where JAX's value
-    lies; DDRM's PSNR also by the limit's three-way rule."""
-    kept = sorted((k for k in kept if k["epoch"] >= KEPT_FROM), key=lambda k: k["epoch"])
-    epochs = [k["epoch"] for k in kept]
+def kept_scores(k: dict, row: str):
+    """A kept checkpoint's scores in one protocol row, or None. Sweeps
+    written before `-u 0` kept two rows hold DDRM's scores unnested."""
+    scores = k["scores"]
+    return scores if "predict_vs_latent" in scores else scores.get(row)
+
+
+def kept_row(kept: list, jax_row: dict) -> dict:
+    """One run's kept checkpoints of one row, (epoch, scores) pairs of
+    epochs KEPT_FROM onwards: each metric's min, median and max, their
+    epochs, and where JAX's value lies; SSIM and PSNR also by their
+    limits' three-way rule."""
+    kept = sorted(kept, key=lambda k: k[0])
+    epochs = [e for e, _ in kept]
     out = {"epochs": epochs}
     for m in METRICS:
-        v = np.asarray([k["scores"]["predict_vs_latent"][m] for k in kept], np.float64)
+        v = np.asarray([s["predict_vs_latent"][m] for _, s in kept], np.float64)
         j = jax_row[m]
         inside = v.min() <= j <= v.max()
         said = ("within one run's checkpoint spread" if inside
                 else "outside one run's checkpoint spread")
-        if m == "pas_psnr" and row == "ddrm" and not inside:
-            near = [e for e, x in zip(epochs, v) if abs(x - j) <= PSNR_LIMIT]
+        if m in LIMITS and not inside:
+            near = [e for e, x in zip(epochs, v) if abs(x - j) <= LIMITS[m]]
             said = ("systematic" if not near else
                     "within the limit at epochs " + ", ".join(map(str, near)))
         out[m] = {"n": len(v), "min": float(v.min()), "median": float(np.median(v)),
@@ -200,8 +221,8 @@ def spread(paths, tables: str, validation: str) -> dict:
     """The verdict of every metric of every row over the summaries. Runs
     of another length than the protocol's 150 epochs form rows of their
     own, named with `_e{epochs}`; fp32 runs with `_fp32`, bf16 runs that
-    keep checkpoints with `_sweep`; a run's kept checkpoints a row
-    `{ddrm,k1}..._kept_seed{seed}`."""
+    keep checkpoints with `_sweep`; a run's kept checkpoints a row for each
+    protocol row they were scored in, `{ddrm,k1,t29}..._kept_seed{seed}`."""
     runs = [json.load(open(p)) for p in paths]
     jax = jax_rows(tables, validation)
 
@@ -235,11 +256,13 @@ def spread(paths, tables: str, validation: str) -> dict:
         out[f"best_val_u{u}{tag}"] = {"seeds": seeds} | {
             k: verdict([r["train"][k + suffix] for r in mine], want[k])
             for k in ("best_val", "best_epoch")}
-        row = "ddrm" if u else "k1"
         for r in mine:
-            if r.get("kept"):
-                out[f"{row}{tag}_kept_seed{r['train']['seed']}"] = {
-                    "seeds": [r["train"]["seed"]]} | kept_row(r["kept"], jax[row], row)
+            for row in rows:
+                kept = [(k["epoch"], kept_scores(k, row)) for k in r.get("kept", ())
+                        if k["epoch"] >= KEPT_FROM and kept_scores(k, row)]
+                if kept:
+                    out[f"{row}{tag}_kept_seed{r['train']['seed']}"] = {
+                        "seeds": [r["train"]["seed"]]} | kept_row(kept, jax[row])
     return out
 
 
@@ -455,22 +478,55 @@ def score(qdir: str, data_dir: str, latent_dir: str, rows) -> dict:
     return out
 
 
-def score_kept(root: str, args, dev: torch.device, state: dict, kept: list) -> None:
-    """Each kept checkpoint through the protocol's own inference (`-u 1`:
-    DDRM; `-u 0`: K=1), the prediction against the latent and the realized
-    target; the file and the run's outputs deleted once scored."""
-    for k in kept:
-        path = k.pop("path")
-        run, data_dir = infer(root, args, dev, None if args.u else 1, f"_kept{k['epoch']}",
-                              weights=path)
-        t0 = time.time()
-        k["scores"] = score(run["outdir"], data_dir, os.path.join(root, "latent"), ROWS[:2])
-        k["score_s"] = time.time() - t0
-        k["best_so_far"] = min(r["val"] for r in state["history"] if r["epoch"] <= k["epoch"])
-        k |= {key: run[key] for key in ("patches", "wall_s", "launches")}
-        os.remove(path)
-        shutil.rmtree(run["outdir"])
-        state["kept"].append(k)
+def _timed_score(qdir: str, data_dir: str, latent_dir: str, rows) -> tuple:
+    """score() and its wall, in the worker process."""
+    t0 = time.time()
+    return score(qdir, data_dir, latent_dir, rows), time.time() - t0
+
+
+def score_kept(root: str, args, dev: torch.device, state: dict, kept: list, saved) -> None:
+    """Each kept checkpoint through the protocol's own inference runs
+    (`-u 1`: DDRM; `-u 0`: K=1, and t*=29 from epoch KEPT_FROM on), the
+    file deleted once they ran. A worker process scores each run (`-u 1`:
+    the prediction against the latent and the realized target; `-u 0`:
+    against the latent) while the card runs the next. Once a checkpoint's
+    runs are scored their outputs are deleted, its entry joins
+    state["kept"] and `saved()` is called; one whose inference failed is
+    left out."""
+    latent_dir = os.path.join(root, "latent")
+    rows = ROWS[:2] if args.u else ROWS[:1]
+    queue = []  # (entry, {row: (run, future)}), inferred, in epoch order
+
+    def collect(wait: bool) -> None:
+        while queue and (wait or all(f.done() for _, f in queue[0][1].values())):
+            k, runs = queue.pop(0)
+            k["scores"], k["runs"] = {}, {}
+            for name, (run, future) in runs.items():
+                k["scores"][name], run["score_s"] = future.result()
+                shutil.rmtree(run["outdir"])
+                k["runs"][name] = {key: run[key] for key in ("patches", "wall_s", "score_s",
+                                                            "launches")}
+            k["best_so_far"] = min(r["val"] for r in state["history"] if r["epoch"] <= k["epoch"])
+            state["kept"].append(k)
+            saved()
+
+    spawn = multiprocessing.get_context("spawn")  # the parent holds the card
+    with concurrent.futures.ProcessPoolExecutor(1, mp_context=spawn) as pool:
+        try:
+            for k in kept:
+                path, runs = k.pop("path"), {}
+                for name, steps, tag in RUNS[args.u]:
+                    if name == "t29" and k["epoch"] < KEPT_FROM:
+                        continue
+                    run, data_dir = infer(root, args, dev, steps, f"_kept{k['epoch']}{tag}",
+                                          weights=path)
+                    runs[name] = run, pool.submit(_timed_score, run["outdir"], data_dir,
+                                                  latent_dir, rows)
+                    collect(wait=False)
+                os.remove(path)
+                queue.append((k, runs))
+        finally:
+            collect(wait=True)
 
 
 def main(argv=None):
@@ -537,24 +593,33 @@ def main(argv=None):
                  "best": None, "pieces": [], "warm_steps_ms": [], "kept": []}
         os.makedirs(os.path.dirname(state_path))
     summary["fixture"] = state["fixture"]
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+
+    def save(partial: bool) -> None:
+        """--out as it stands, whole: a temporary file, then a rename."""
+        summary["train"] = train_summary(state)
+        if state["kept"]:
+            summary["kept"] = state["kept"]
+        summary["partial"] = partial
+        summary["wall_s"] = time.time() - t_all  # this call's
+        with open(args.out + ".tmp", "w") as f:
+            json.dump(summary, f, indent=1)
+        os.replace(args.out + ".tmp", args.out)
+
     stop = min(args.stop_after or args.epochs, args.epochs)
     if state["done"] < stop:
         kept = train(root, args, dev, state, stop)
-        score_kept(root, args, dev, state, kept)
+        save(partial=True)
+        score_kept(root, args, dev, state, kept, lambda: save(partial=True))
     with open(state_path, "w") as f:
         json.dump(state, f)
-    summary["train"] = train_summary(state)
-    if state["kept"]:
-        summary["kept"] = state["kept"]
     finished = state["done"] == args.epochs and args.stop_after is None
     if finished:  # the lowest best of all pieces is the run's bestg
         shutil.copy(os.path.join(root, "piece", "bestg.msgpack"),
                     os.path.join(root, state["best"]["bestg"]))
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     if finished and not args.train_only:
         latent_dir = os.path.join(root, "latent")
-        runs = (("ddrm", None, ""),) if args.u else (("t29", None, ""), ("k1", 1, "_k1"))
-        for name, steps, tag in runs:
+        for name, steps, tag in RUNS[args.u]:
             run, data_dir = infer(root, args, dev, steps, tag)
             # identity and floor: the same arrays in both -u 0 quartets
             rows = ROWS[:2] if name == "k1" else ROWS
@@ -562,9 +627,7 @@ def main(argv=None):
             run["scores"] = score(run["outdir"], data_dir, latent_dir, rows)
             run["score_s"] = time.time() - t0
             summary[name] = run
-    summary["wall_s"] = time.time() - t_all  # this call's
-    with open(args.out, "w") as f:
-        json.dump(summary, f, indent=1)
+    save(partial=False)
     log = summary["train"].get("log")
     if log and os.path.exists(log):
         shutil.copy(log, os.path.splitext(args.out)[0] + "_train.jsonl")
@@ -578,8 +641,8 @@ def main(argv=None):
             brief[name] = {k: {m: v[m] for m in ("pas_ssim", "pas_psnr", "pas_pcc")}
                            for k, v in summary[name]["scores"].items() if k != "latent"}
     if state["kept"]:
-        brief["kept"] = [(k["epoch"], k["val"], k["scores"]["predict_vs_latent"]["pas_psnr"],
-                          k["scores"]["predict_vs_latent"]["pas_ssim"]) for k in state["kept"]]
+        brief["kept"] = [(k["epoch"], k["val"], {row: [v["predict_vs_latent"][m] for m in (
+            "pas_psnr", "pas_ssim")] for row, v in k["scores"].items()}) for k in state["kept"]]
     print(json.dumps(brief))
 
 
